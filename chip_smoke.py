@@ -11,22 +11,27 @@ Phases, in order; any failure exits non-zero and prints no result:
 1. probe    torch version, CUDA device, `nvidia-smi` name and power limit.
 2. build    compile the Fp kernels (ops/csrc/fp_kernels.cu) from source.
 3. kernels  each of the five kernels against its plain PyTorch version on
-            the card, bit for bit (tolerance 0), at N in {1, 511, 512, 513,
-            110646} rows (110646 ~ one stacked Fp12 product of a merged
-            2048-set batch), on random relaxed signed limbs made with numpy
-            from a fixed seed: +-LIMB_LOOSE rows, exact-zero rows, and for
-            redc signed sums of three accumulators. Times at the largest N.
+            the card, bit for bit (tolerance 0), at the tile edges of the
+            kernels and the main path's row counts (N_KERNEL_CHECK), on
+            random relaxed signed limbs made with numpy from a fixed seed:
+            +-LIMB_LOOSE rows, exact-zero rows, and for redc signed sums of
+            three accumulators. Then each kernel's DEVICE time at the row
+            counts of N_TIMED: 50 launches captured in one CUDA graph, the
+            replays timed with CUDA events (so the wrappers' host work is
+            not in it), each time beside its bound.
 4. main     the port's main path through its entry points: 128 synthetic
             sets (bench.py's seed 17) verify True, two swapped signatures
             verify False, then 16 x 128 = 2048 sets merged into one
             `device_batch_verify` with fresh blinding (1 warm-up, 3 timed
             runs), all True. Launch counts are reset just before and read
             just after; every kernel must have launched.
-5. profile  where the time of one merged 2048-set verify goes: one more
-            verify split at its three stage boundaries (wall time and
-            kernel launches per stage), then one under `torch.profiler`
-            for the card's busy time, its idle share of the unprofiled
-            verify's wall time, and the device time per kernel.
+5. profile  where the time of one merged 2048-set verify goes: each
+            kernel's launches per verify by row count, and its kernel ms per
+            verify (launches x graph-replay time at each of those row
+            counts); one more verify split at its three stage boundaries
+            (wall time and kernel launches per stage), then one under
+            `torch.profiler` for the card's busy time, its idle share of the
+            unprofiled verify's wall time, and the device time per kernel.
 6. check    a Miller loop + final exponentiation of two pairs on the card
             equals the CPU path (the plain versions) limb for limb, and
             equals e(P, Q) from the host pairing check on canonical values.
@@ -43,7 +48,15 @@ import subprocess
 import sys
 import time
 
-N_KERNEL_CHECK = (1, 511, 512, 513, 110646)
+# Row counts the main path launches the Fp kernels at (a 2048-set verify:
+# 1 in the Fermat chains, 12/36 in the final exponentiation, 4096-6147 in
+# the curve and tower steps, 24588-73764 in the Miller loop), the edges of
+# the kernels' 32-row tiles and 128-row blocks, and 110646, the row count
+# the first kernel table was measured at.
+N_TIMED = (1, 12, 36, 4096, 6147, 24588, 73764, 110646)
+N_KERNEL_CHECK = tuple(sorted({*N_TIMED, 15, 16, 17, 31, 32, 33, 63, 64, 65, 511, 512,
+                               513, 4098}))
+N_COMPARE = 110646
 BATCH = 128  # sets per gossip job
 MERGE_JOBS = 16  # jobs merged into one RLC batch
 TIMED_RUNS = 3
@@ -63,6 +76,14 @@ REPLACES = {
     "mont_mul": "lodestar_tpu/ops/fp_pallas.py:199",
 }
 SOURCE = "lodestar_tpu_torch/ops/csrc/fp_kernels.cu"
+# Each kernel's function name as a profiler trace shows it (demangled).
+SYMBOL = {
+    "mul_acc": "mul_acc_kernel(",
+    "sq_acc": "mul_kernel<true, false>(",
+    "redc": "redc_kernel(",
+    "mont_mul": "mul_kernel<false, true>(",
+    "mont_sq": "mul_kernel<true, true>(",
+}
 
 
 def fail(msg):
@@ -85,7 +106,9 @@ def nvidia_smi_line():
 
 
 def cuda_ms(fn, iters, warmup=2):
-    """Mean device time of fn() over `iters` launches (CUDA events)."""
+    """Mean time of fn() over `iters` back-to-back host calls (CUDA events
+    around the loop): device time only where the device, not the host's
+    issue rate, is the limit (the plain versions, milliseconds a call)."""
     import torch
 
     for _ in range(warmup):
@@ -99,6 +122,45 @@ def cuda_ms(fn, iters, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters=50, replays=5):
+    """Device time of one fn() call: `iters` calls captured in one CUDA
+    graph, `replays` replays timed with CUDA events, divided out. The
+    wrapper's host work (checks, allocation, the ctypes call) runs once at
+    capture and not in the timed window; what remains per call is the
+    kernel and the graph's launch of it. Inputs stay in the 50 MB L2 across
+    the calls where they fit, as they do for the main path's producer and
+    consumer kernels."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * iters)
+
+
+def bound(name, n):
+    """(least ms for n rows on the card, "bytes" or "operations")."""
+    macs, nbytes = work_per_row(name)
+    t_ops = n * macs / INT32_MAD_PER_S * 1e3
+    t_bytes = n * nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes"
 
 
 # --- phase 3 -----------------------------------------------------------------
@@ -162,6 +224,7 @@ def check_kernels(dev):
         kernel = getattr(fp_cuda, name)
         plain = getattr(fp, f"plain_{name}")
         max_err = 0
+        at_rows = {}
         for n in N_KERNEL_CHECK:
             args = kernel_inputs(name, n, rng, dev)
             got = kernel(*args)
@@ -171,23 +234,26 @@ def check_kernels(dev):
             max_err = max(max_err, err)
             if got.shape != want.shape or not torch.equal(got, want):
                 fail(f"{name} differs from its plain version at N={n} (max |err| {err})")
-        n = N_KERNEL_CHECK[-1]
-        ms = cuda_ms(lambda: kernel(*args), iters=50)
-        plain_ms = cuda_ms(lambda: plain(*args), iters=5, warmup=1)
-        macs, nbytes = work_per_row(name)
-        t_ops = n * macs / INT32_MAD_PER_S * 1e3
-        t_bytes = n * nbytes / HBM_BYTES_PER_S * 1e3
+            if n in N_TIMED:
+                ms = graph_ms(lambda: kernel(*args))
+                b_ms, by = bound(name, n)
+                at_rows[n] = {"ms": ms, "bound_ms": b_ms, "bound_by": by}
+                say(f"kernel {name} N={n}: {ms * 1e3:.2f} us device (graph replay), "
+                    f"bound {b_ms * 1e3:.2f} us by {by}, {ms / b_ms:.2f}x the bound")
+            if n == N_COMPARE:
+                plain_ms = cuda_ms(lambda: plain(*args), iters=5, warmup=1)
+        b_ms, by = bound(name, N_COMPARE)
         report[name] = {
             "max_abs_err": max_err,
-            "ms": ms,
+            "ms": at_rows[N_COMPARE]["ms"],
             "plain_ms": plain_ms,
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops > t_bytes else "bytes",
-            "n": n,
+            "bound_ms": b_ms,
+            "bound_by": by,
+            "n": N_COMPARE,
+            "at_rows": at_rows,
         }
-        say(f"kernel {name}: bit-exact at N={list(N_KERNEL_CHECK)}; at N={n}: "
-            f"{ms:.4f} ms (plain {plain_ms:.3f} ms, bound {report[name]['bound_ms']:.4f} ms "
-            f"by {report[name]['bound_by']})")
+        say(f"kernel {name}: bit-exact at N={list(N_KERNEL_CHECK)}; at N={N_COMPARE}: "
+            f"{report[name]['ms']:.4f} ms (plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms by {by})")
     return report
 
 
@@ -240,10 +306,10 @@ def main_path(dev, smi):
 
     if not bool(bv.device_batch_verify(pk_m, h_m, sig_m, fresh_bits(), mask_m)):
         fail("warm-up merged batch did not verify")
-    times, per_verify = [], None
+    times, per_verify_rows = [], None
     for i in range(TIMED_RUNS):
         bits = fresh_bits()
-        before = dict(fp_cuda.LAUNCHES)
+        before_rows = {k: dict(v) for k, v in fp_cuda.ROWS.items()}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         ok = bool(bv.device_batch_verify(pk_m, h_m, sig_m, bits, mask_m))
@@ -251,9 +317,14 @@ def main_path(dev, smi):
         times.append(time.perf_counter() - t0)
         if not ok:
             fail(f"timed merged batch {i} did not verify")
-        if per_verify is None:
-            per_verify = {k: fp_cuda.LAUNCHES[k] - before[k] for k in fp_cuda.KERNELS}
+        if per_verify_rows is None:
+            per_verify_rows = {
+                k: {n: c - before_rows[k].get(n, 0) for n, c in sorted(fp_cuda.ROWS[k].items())
+                    if c > before_rows[k].get(n, 0)}
+                for k in fp_cuda.KERNELS
+            }
     launches = dict(fp_cuda.LAUNCHES)  # the main path's run ends here
+    per_verify = {k: sum(rows.values()) for k, rows in per_verify_rows.items()}
     mean = sum(times) / len(times)
     say(f"main: {merged}-set merged batch x{TIMED_RUNS}: "
         f"{', '.join(f'{t:.3f}' for t in times)} s; {merged / mean:.1f} sigs/s on {smi}")
@@ -262,7 +333,8 @@ def main_path(dev, smi):
     missing = [k for k in fp_cuda.KERNELS if launches[k] <= 0]
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
-    return launches, per_verify, merged / mean, (pk_m, h_m, sig_m, mask_m, fresh_bits)
+    return (launches, per_verify, per_verify_rows, merged / mean,
+            (pk_m, h_m, sig_m, mask_m, fresh_bits))
 
 
 # --- phase 5 -----------------------------------------------------------------
@@ -315,12 +387,35 @@ def busy_ms(events):
     return busy / 1e3  # profiler times are in microseconds
 
 
-def profile_merged(merged_inputs, smi):
+def kernel_ms_per_verify(per_verify_rows, dev):
+    """{name: ms}: launches x graph-replay device time, summed over the row
+    counts one merged verify launches the kernel at."""
+    import numpy as np
+
+    from lodestar_tpu_torch.ops import fp_cuda
+
+    rng = np.random.default_rng(7)
+    out = {}
+    for name, by_rows in per_verify_rows.items():
+        kernel = getattr(fp_cuda, name)
+        total = 0.0
+        for n, count in by_rows.items():
+            args = kernel_inputs(name, n, rng, dev)
+            total += count * graph_ms(lambda: kernel(*args), iters=20, replays=3)
+        out[name] = total
+    return out
+
+
+def profile_merged(merged_inputs, per_verify_rows, smi):
     import torch
 
     from lodestar_tpu_torch.models import batch_verify as bv
 
     pk, h, sig, mask, fresh_bits = merged_inputs
+    for name, by_rows in per_verify_rows.items():
+        say(f"profile: {name} launches per {mask.numel()}-set verify by row count "
+            f"{{rows: launches}}: {json.dumps(by_rows)}")
+    per_verify_ms = kernel_ms_per_verify(per_verify_rows, mask.device)
     ok, stages = verify_by_stage(pk, h, sig, fresh_bits(), mask)
     if not ok:
         fail("the stage-split merged batch did not verify")
@@ -347,7 +442,10 @@ def profile_merged(merged_inputs, smi):
     busy = busy_ms(events)
     if busy == 0:
         say("profile: device busy time: not measured (the trace holds no device events)")
-        return
+        for name, ms in per_verify_ms.items():
+            say(f"profile: {name} kernel ms per verify {ms:.2f} (graph replay x launches); "
+                "profiler: not measured")
+        return per_verify_ms, dict.fromkeys(per_verify_ms)
     # The profiler slows the host, not the card: the idle share is read
     # against the unprofiled stage-split verify's wall time.
     say(f"profile: device busy {busy:.1f} ms; idle {100 * (1 - busy / (wall * 1e3)):.1f}% of "
@@ -362,10 +460,16 @@ def profile_merged(merged_inputs, smi):
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])
     for name, (count, ms) in top[:8]:
         say(f"profile: kernel {ms:9.2f} ms {count:7d}x  {name[:90]}")
-    ours = [(n, c, ms) for n, (c, ms) in top if "mul_kernel<" in n or "redc_kernel(" in n]
-    for name, count, ms in ours:
-        say(f"profile: fp kernel {ms:9.2f} ms {count:7d}x  {name[:90]}")
-    say(f"profile: fp kernels {sum(ms for _, _, ms in ours):.2f} ms of {busy:.1f} ms busy")
+    profiled = {}
+    for name, symbol in SYMBOL.items():
+        hits = [(c, ms) for n, (c, ms) in by_kernel.items() if symbol in n]
+        profiled[name] = sum(ms for _, ms in hits)
+        say(f"profile: fp kernel {name}: {per_verify_ms[name]:.2f} ms per verify from graph "
+            f"replay x launches; profiler {profiled[name]:.2f} ms over "
+            f"{sum(c for c, _ in hits)} launches")
+    say(f"profile: fp kernels {sum(profiled.values()):.2f} ms of {busy:.1f} ms busy "
+        f"(graph replay x launches: {sum(per_verify_ms.values()):.2f} ms)")
+    return per_verify_ms, profiled
 
 
 # --- phase 6 -----------------------------------------------------------------
@@ -434,9 +538,9 @@ def main():
     # 3. kernels vs plain versions
     report = check_kernels(dev)
     # 4. main path
-    launches, per_verify, sigs_per_s, merged_inputs = main_path(dev, smi)
+    launches, per_verify, per_verify_rows, sigs_per_s, merged_inputs = main_path(dev, smi)
     # 5. profile of one merged verify
-    profile_merged(merged_inputs, smi)
+    per_verify_ms, profiled_ms = profile_merged(merged_inputs, per_verify_rows, smi)
     # 6. check against the CPU path
     check_against_cpu(dev)
 
@@ -450,6 +554,9 @@ def main():
             "status": "ok",
             "launches": launches[name],
             "launches_per_2048_verify": per_verify[name],
+            "launches_per_2048_verify_by_rows": per_verify_rows[name],
+            "ms_per_2048_verify": per_verify_ms[name],
+            "profiler_ms_per_2048_verify": profiled_ms[name],
             "max_abs_err": report[name]["max_abs_err"],
             "ms": report[name]["ms"],
             "plain_ms": report[name]["plain_ms"],
@@ -457,6 +564,7 @@ def main():
             "bound_by": report[name]["bound_by"],
             "library_ms": None,  # no single PyTorch call computes a Montgomery product
             "n": report[name]["n"],
+            "at_rows": [{"n": n, **v} for n, v in report[name]["at_rows"].items()],
         }
         for name in fp_cuda.KERNELS
     ]

@@ -3,14 +3,23 @@
 Counterpart of ``lodestar_tpu/ops/fp_pallas.py``: the same five entry
 points (`mul_acc`, `sq_acc`, `redc`, `mont_mul`, `mont_sq`), bit-identical
 to the plain versions ``fp.plain_*``. The kernels are hand-written CUDA
-C++ for Hopper (``csrc/fp_kernels.cu``, ``sm_90a``): one thread per row,
-rows staged through shared memory, the 66-limb accumulator kept in
-registers. See the source for what bounds each kernel on an H100.
+C++ for Hopper (``csrc/fp_kernels.cu``, ``sm_90a``): `mul_acc` and `redc`
+give each row four threads, one column range each, in persistent blocks
+that stream 32-row tiles through bulk asynchronous copies; `sq_acc`,
+`mont_mul` and `mont_sq` run one thread per row. See the source for what
+bounds each kernel on an H100.
 
 Each wrapper launches its kernel and raises if the build or the launch
 fails or the tensors are not on a CUDA device; it has no other path.
 ``ops/fp.py`` routes: CPU tensors to its plain versions, all others
-here. Each launch adds one to ``LAUNCHES[name]``.
+here. Each launch adds one to ``LAUNCHES[name]`` and to
+``ROWS[name][n]`` for its row count n.
+
+Timing: ``chip_smoke.py`` phase 3 gives each kernel's device time at the
+row counts the main path launches it at, by capturing 50 launches in one
+CUDA graph and timing the replays with CUDA events, so the wrapper's host
+work (checks, allocation, the ctypes call; tens of microseconds) is not in
+the figure.
 
 Build: on first use, ``nvcc`` compiles the source into a shared library
 with a plain C interface under ``ops/_build/`` (listed in .gitignore),
@@ -32,6 +41,7 @@ import torch
 __all__ = [
     "KERNELS",
     "LAUNCHES",
+    "ROWS",
     "reset_launches",
     "build",
     "mul_acc",
@@ -47,6 +57,7 @@ BUILD_DIR = os.path.join(_HERE, "_build")
 NVCC_FLAGS = [
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
+    "--expt-relaxed-constexpr",  # constexpr tables (column ranges) in device code
     "-O3",
     "-shared",
     "-Xcompiler",
@@ -55,13 +66,16 @@ NVCC_FLAGS = [
 
 LIMBS, ACC_LIMBS = 33, 66  # an Fp element and a product accumulator
 KERNELS = ("mul_acc", "sq_acc", "redc", "mont_mul", "mont_sq")
-# launches of each kernel since the last reset (one per wrapper launch)
+# launches of each kernel since the last reset (one per wrapper launch),
+# and the same launches counted by row count: ROWS[name][n]
 LAUNCHES = dict.fromkeys(KERNELS, 0)
+ROWS = {k: {} for k in KERNELS}
 
 
 def reset_launches() -> None:
     for k in KERNELS:
         LAUNCHES[k] = 0
+        ROWS[k].clear()
 
 
 # --- build and load ------------------------------------------------------------
@@ -153,6 +167,7 @@ def _launch(name: str, args, in_limbs: int, out_limbs: int):
             msg = lib.lodestar_fp_error_string(rc).decode()
             raise RuntimeError(f"{name} kernel launch failed: {msg} ({rc})")
         LAUNCHES[name] += 1
+        ROWS[name][n] = ROWS[name].get(n, 0) + 1
     return out.reshape(*lead, out_limbs)
 
 

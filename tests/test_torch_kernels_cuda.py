@@ -41,18 +41,46 @@ def kernel_args(name, n, rng, dev):
     return relaxed_rows(n, rng, dev), relaxed_rows(n, rng, dev)
 
 
+# Edges of the kernels' 32-row tiles and 128-row blocks (and of 16-row
+# tiles), the main path's row counts, and counts past one wave of the
+# persistent blocks (each block then walks several tiles).
+ROW_COUNTS = (1, 12, 15, 16, 17, 31, 32, 33, 36, 63, 64, 65, 127, 128, 129, 4096, 4098,
+              4099, 6147, 24588, 73764)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", fp_cuda.KERNELS)
 def test_kernel_matches_plain_on_card(name, cuda_device):
     rng = np.random.default_rng(5)
-    for n in (1, 127, 128, 129, 4099):
+    for n in ROW_COUNTS:
         args = kernel_args(name, n, rng, cuda_device)
+        if name == "redc":
+            args[0][1::13] = 0  # exact-zero accumulators stay exact zero
         before = fp_cuda.LAUNCHES[name]
+        before_rows = fp_cuda.ROWS[name].get(n, 0)
         got = getattr(fp_cuda, name)(*args)
         torch.cuda.synchronize()
         assert fp_cuda.LAUNCHES[name] == before + 1
+        assert fp_cuda.ROWS[name][n] == before_rows + 1
         want = getattr(fp, f"plain_{name}")(*args)
         assert torch.equal(got, want), f"{name} differs from its plain version at n={n}"
+        if name == "redc":
+            assert not got[1::13].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", fp_cuda.KERNELS)
+def test_kernel_matches_plain_on_unaligned_rows(name, cuda_device):
+    """Rows that do not start on a 16-byte boundary (a view one row into a
+    tensor), so no bulk copy can take them."""
+    rng = np.random.default_rng(6)
+    for n in (17, 4098):
+        args = tuple(x_full[1:] for x_full in kernel_args(name, n + 1, rng, cuda_device))
+        assert all(x.data_ptr() % 16 for x in args)
+        got = getattr(fp_cuda, name)(*args)
+        torch.cuda.synchronize()
+        want = getattr(fp, f"plain_{name}")(*args)
+        assert torch.equal(got, want), f"{name} differs on unaligned rows at n={n}"
 
 
 @pytest.mark.cuda
