@@ -38,10 +38,20 @@ Phases, in order; any failure exits non-zero and prints no result:
 7. report   one JSON line of kernels, the `nvidia-smi` line, and the last
             line {"ok": true, "device": {...}}.
 
+With `--compare-parent DIR` (a checkout of an earlier commit, for example
+unpacked with `git archive` into a directory that .gitignore lists),
+phase 2 also builds DIR's kernel source, beside this one's, and a step
+between phases 6 and 7 checks each of its kernels against the plain
+version and times it beside this source's, in turns (parent, this, this,
+parent), at the row counts of N_TIMED and of one merged verify, each
+with its ms per verify.
+
 Host prep is the pure-Python oracle (tens of ms per set); it runs outside
 every timed window and is printed on its own line.
 """
 
+import argparse
+import concurrent.futures
 import json
 import os
 import subprocess
@@ -49,13 +59,16 @@ import sys
 import time
 
 # Row counts the main path launches the Fp kernels at (a 2048-set verify:
-# 1 in the Fermat chains, 12/36 in the final exponentiation, 4096-6147 in
-# the curve and tower steps, 24588-73764 in the Miller loop), the edges of
-# the kernels' 32-row tiles and 128-row blocks, and 110646, the row count
-# the first kernel table was measured at.
-N_TIMED = (1, 12, 36, 4096, 6147, 24588, 73764, 110646)
-N_KERNEL_CHECK = tuple(sorted({*N_TIMED, 15, 16, 17, 31, 32, 33, 63, 64, 65, 511, 512,
-                               513, 4098}))
+# 1 in the Fermat chains, 12/36 in the final exponentiation, 2048 in the
+# Fermat chain of the blinded public keys, 4096-6147 in the curve and tower
+# steps, 24588-73764 in the Miller loop), the edges of the kernels' paths
+# (one row, one 16- or 32-row tile), tiles, 128-row blocks and share counts
+# (eight a row up to 16 rows per SM: 2112 on an H100 SXM), the two sides of
+# redc's switch to its column-range body (past five 32-row tiles per SM:
+# 21120), and 110646, the row count the first kernel table was measured at.
+N_TIMED = (1, 12, 36, 2048, 4096, 6147, 21120, 21121, 24588, 73764, 110646)
+N_KERNEL_CHECK = tuple(sorted({*N_TIMED, 2, 15, 16, 17, 31, 32, 33, 63, 64, 65, 511, 512,
+                               513, 2049, 2112, 2113, 4098}))
 N_COMPARE = 110646
 BATCH = 128  # sets per gossip job
 MERGE_JOBS = 16  # jobs merged into one RLC batch
@@ -79,10 +92,10 @@ SOURCE = "lodestar_tpu_torch/ops/csrc/fp_kernels.cu"
 # Each kernel's function name as a profiler trace shows it (demangled).
 SYMBOL = {
     "mul_acc": "mul_acc_kernel(",
-    "sq_acc": "mul_kernel<true, false>(",
-    "redc": "redc_kernel(",
-    "mont_mul": "mul_kernel<false, true>(",
-    "mont_sq": "mul_kernel<true, true>(",
+    "sq_acc": "sq_acc_kernel(",
+    "redc": "redc_kernel<",  # every <PATH, W> instantiation
+    "mont_mul": "mont_mul_kernel<",
+    "mont_sq": "mont_sq_kernel<",
 }
 
 
@@ -472,6 +485,48 @@ def profile_merged(merged_inputs, per_verify_rows, smi):
     return per_verify_ms, profiled
 
 
+# --- comparison with an earlier commit's kernels (--compare-parent) -----------
+
+
+def compare_kernels(parent, per_verify_rows, dev, smi):
+    """Each kernel of the parent's library against its plain version, and its
+    device time beside this source's, in turns (parent, this, this, parent),
+    at the row counts of N_TIMED and of one merged verify; ms per verify =
+    launches x time at each row count."""
+    import numpy as np
+    import torch
+
+    from lodestar_tpu_torch.ops import fp, fp_cuda
+
+    libs = {"parent": parent, "this": fp_cuda._load()}
+    rng = np.random.default_rng(11)
+    result = {}
+    for name in fp_cuda.KERNELS:
+        plain = getattr(fp, f"plain_{name}")
+        us = {t: {} for t in libs}
+        for n in sorted({*N_TIMED, *per_verify_rows[name]}):
+            args = kernel_inputs(name, n, rng, dev)
+            want = plain(*args)
+            runs = {t: [] for t in libs}
+            for tag in ("parent", "this", "this", "parent"):
+                lib = libs[tag]
+                if not torch.equal(fp_cuda.launch(name, *args, lib=lib), want):
+                    fail(f"compare: {name} of the {tag} build differs from its plain "
+                         f"version at N={n}")
+                runs[tag].append(graph_ms(lambda: fp_cuda.launch(name, *args, lib=lib)))
+            for t in libs:
+                us[t][n] = 1e3 * sum(runs[t]) / len(runs[t])
+            say(f"compare: {name} N={n}: parent {us['parent'][n]:.2f} us, this "
+                f"{us['this'][n]:.2f} us (graph replay, in turns)")
+        per_verify = {t: sum(c * us[t][n] for n, c in per_verify_rows[name].items()) / 1e3
+                      for t in libs}
+        result[name] = {"us": us, "ms_per_2048_verify": per_verify}
+        say(f"compare: {name} ms per verify parent {per_verify['parent']:.2f}, this "
+            f"{per_verify['this']:.2f} on {smi}")
+    say("compare: " + json.dumps(result))
+    return result
+
+
 # --- phase 6 -----------------------------------------------------------------
 
 
@@ -511,6 +566,10 @@ def check_against_cpu(dev):
 
 
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--compare-parent", metavar="DIR",
+                        help="also time the kernels of the checkout in DIR beside these")
+    args = parser.parse_args()
     repo = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(repo, "lodestar_tpu_torch")):
         fail("lodestar_tpu_torch/ not found beside chip_smoke.py: run it from a checkout")
@@ -531,8 +590,15 @@ def main():
     from lodestar_tpu_torch.ops import fp_cuda
 
     t0 = time.perf_counter()
-    fp_cuda.build(verbose=True)
+    sources = [fp_cuda.SOURCE]
+    if args.compare_parent:
+        sources.append(os.path.join(args.compare_parent, SOURCE))
+        if not os.path.exists(sources[1]):
+            fail(f"no kernel source in the parent checkout at {sources[1]}")
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:  # one nvcc each
+        paths = list(pool.map(lambda src: fp_cuda.build(verbose=True, source=src), sources))
     fp_cuda._load()
+    parent = fp_cuda.load_library(paths[1]) if args.compare_parent else None
     say(f"build: fp kernels built and loaded in {time.perf_counter() - t0:.1f} s")
 
     # 3. kernels vs plain versions
@@ -543,6 +609,8 @@ def main():
     per_verify_ms, profiled_ms = profile_merged(merged_inputs, per_verify_rows, smi)
     # 6. check against the CPU path
     check_against_cpu(dev)
+    if parent is not None:
+        compare_kernels(parent, per_verify_rows, dev, smi)
 
     # 7. report
     kernels = [
@@ -556,6 +624,8 @@ def main():
             "launches_per_2048_verify": per_verify[name],
             "launches_per_2048_verify_by_rows": per_verify_rows[name],
             "ms_per_2048_verify": per_verify_ms[name],
+            "bound_ms_per_2048_verify": sum(count * bound(name, n)[0]
+                                            for n, count in per_verify_rows[name].items()),
             "profiler_ms_per_2048_verify": profiled_ms[name],
             "max_abs_err": report[name]["max_abs_err"],
             "ms": report[name]["ms"],

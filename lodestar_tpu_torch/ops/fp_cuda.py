@@ -3,11 +3,19 @@
 Counterpart of ``lodestar_tpu/ops/fp_pallas.py``: the same five entry
 points (`mul_acc`, `sq_acc`, `redc`, `mont_mul`, `mont_sq`), bit-identical
 to the plain versions ``fp.plain_*``. The kernels are hand-written CUDA
-C++ for Hopper (``csrc/fp_kernels.cu``, ``sm_90a``): `mul_acc` and `redc`
-give each row four threads, one column range each, in persistent blocks
-that stream 32-row tiles through bulk asynchronous copies; `sq_acc`,
-`mont_mul` and `mont_sq` run one thread per row. See the source for what
-bounds each kernel on an H100.
+C++ for Hopper (``csrc/fp_kernels.cu``, ``sm_90a``): `mul_acc` gives each
+row four threads, one column range each; `redc`, `mont_mul` and
+`mont_sq` give each row eight threads (16-row tiles) up to 16 rows per SM,
+else four (32-row tiles), all threads of a block on one code path, their
+shares meeting by shared-memory atomic adds (a `redc` launch of more than
+five 32-row tiles per SM runs `mul_acc`'s split instead); all four stream
+their tiles through bulk asynchronous copies in persistent blocks. `mont_mul` and
+`mont_sq` keep each row's 66-limb product in shared memory and reduce it
+there. A launch of one tile or less takes a one-block path with plain
+loads and stores, and a `mont_mul` or `mont_sq` launch of one row (the
+Fermat chains) a path that puts all 128 threads of a block on that row.
+`sq_acc` runs one thread per row. See the source for what bounds each
+kernel on an H100.
 
 Each wrapper launches its kernel and raises if the build or the launch
 fails or the tensors are not on a CUDA device; it has no other path.
@@ -24,7 +32,9 @@ the figure.
 Build: on first use, ``nvcc`` compiles the source into a shared library
 with a plain C interface under ``ops/_build/`` (listed in .gitignore),
 named by the source's hash; it is loaded with ctypes. Nothing is built or
-imported from CUDA when this module is imported.
+imported from CUDA when this module is imported. ``build(source=...)``,
+``load_library`` and ``launch(..., lib=...)`` also build, load and launch
+another checkout's copy of the source, to time it beside this one.
 """
 
 from __future__ import annotations
@@ -44,6 +54,8 @@ __all__ = [
     "ROWS",
     "reset_launches",
     "build",
+    "load_library",
+    "launch",
     "mul_acc",
     "sq_acc",
     "redc",
@@ -66,6 +78,14 @@ NVCC_FLAGS = [
 
 LIMBS, ACC_LIMBS = 33, 66  # an Fp element and a product accumulator
 KERNELS = ("mul_acc", "sq_acc", "redc", "mont_mul", "mont_sq")
+# each kernel's operand count and the limbs of an operand row and an output row
+_SHAPES = {
+    "mul_acc": (2, LIMBS, ACC_LIMBS),
+    "sq_acc": (1, LIMBS, ACC_LIMBS),
+    "redc": (1, ACC_LIMBS, LIMBS),
+    "mont_mul": (2, LIMBS, LIMBS),
+    "mont_sq": (1, LIMBS, LIMBS),
+}
 # launches of each kernel since the last reset (one per wrapper launch),
 # and the same launches counted by row count: ROWS[name][n]
 LAUNCHES = dict.fromkeys(KERNELS, 0)
@@ -95,21 +115,21 @@ def _nvcc() -> str:
     return found
 
 
-def library_path() -> str:
-    with open(SOURCE, "rb") as f:
+def library_path(source: str = SOURCE) -> str:
+    with open(source, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return os.path.join(BUILD_DIR, f"libfp_kernels_{digest}.so")
 
 
-def build(verbose: bool = False) -> str:
-    """Compile the kernels (if this source was not built yet) and return
-    the library path. Raises with nvcc's output on failure."""
-    out = library_path()
+def build(verbose: bool = False, source: str = SOURCE) -> str:
+    """Compile the kernels of `source` (if that source was not built yet)
+    and return the library path. Raises with nvcc's output on failure."""
+    out = library_path(source)
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE]
+    tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, source]
     if verbose:
         cmd.insert(1, "-Xptxas=-v")
     res = subprocess.run(cmd, capture_output=True, text=True)
@@ -121,28 +141,35 @@ def build(verbose: bool = False) -> str:
     return out
 
 
+def load_library(path: str) -> ctypes.CDLL:
+    """Load a built kernel library and declare its C entry points."""
+    lib = ctypes.CDLL(path)
+    vp, i64 = ctypes.c_void_p, ctypes.c_int64
+    for name, (arity, _, _) in _SHAPES.items():
+        fn = getattr(lib, f"lodestar_fp_{name}")
+        fn.argtypes = [vp] * (arity + 1) + [i64, vp]
+        fn.restype = ctypes.c_int
+    lib.lodestar_fp_error_string.argtypes = [ctypes.c_int]
+    lib.lodestar_fp_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _load():
     global _lib
     if _lib is not None:
         return _lib
     with _lib_lock:
         if _lib is None:
-            lib = ctypes.CDLL(build())
-            vp, i64 = ctypes.c_void_p, ctypes.c_int64
-            for name, nptr in (("mul_acc", 3), ("sq_acc", 2), ("redc", 2),
-                               ("mont_mul", 3), ("mont_sq", 2)):
-                fn = getattr(lib, f"lodestar_fp_{name}")
-                fn.argtypes = [vp] * nptr + [i64, vp]
-                fn.restype = ctypes.c_int
-            lib.lodestar_fp_error_string.argtypes = [ctypes.c_int]
-            lib.lodestar_fp_error_string.restype = ctypes.c_char_p
-            _lib = lib
+            _lib = load_library(build())
     return _lib
 
 
-def _launch(name: str, args, in_limbs: int, out_limbs: int):
-    """Flatten to (N, limbs) contiguous int32 rows, launch on the current
-    stream, restore the leading shape. Raises on any refused launch."""
+def launch(name: str, *args, lib=None):
+    """Kernel `name` of `lib` (default: this source's build) on operands of
+    one shape: flatten to (N, limbs) contiguous int32 rows, launch on the
+    current stream, restore the leading shape. Raises on any refused
+    launch."""
+    _, in_limbs, out_limbs = _SHAPES[name]
     dev = args[0].device
     if dev.type != "cuda":
         raise ValueError(f"{name}: the kernel takes CUDA tensors, got {dev}")
@@ -153,7 +180,7 @@ def _launch(name: str, args, in_limbs: int, out_limbs: int):
             raise TypeError(f"{name}: expects int32 limbs, got {x.dtype}")
         if x.shape[-1] != in_limbs:
             raise ValueError(f"{name}: expects (..., {in_limbs}) limbs, got {tuple(x.shape)}")
-    lib = _load()
+    lib = _load() if lib is None else lib
     lead = args[0].shape[:-1]
     rows = [x.reshape(-1, in_limbs).contiguous() for x in args]
     n = rows[0].shape[0]
@@ -176,21 +203,21 @@ def _launch(name: str, args, in_limbs: int, out_limbs: int):
 
 def mul_acc(a, b):
     """(.., 33) x (.., 33) -> (.., 66) product accumulator."""
-    return _launch("mul_acc", torch.broadcast_tensors(a, b), LIMBS, ACC_LIMBS)
+    return launch("mul_acc", *torch.broadcast_tensors(a, b))
 
 
 def sq_acc(a):
-    return _launch("sq_acc", (a,), LIMBS, ACC_LIMBS)
+    return launch("sq_acc", a)
 
 
 def redc(t):
     """(.., 66) accumulator -> (.., 33) Montgomery-reduced element."""
-    return _launch("redc", (t,), ACC_LIMBS, LIMBS)
+    return launch("redc", t)
 
 
 def mont_mul(a, b):
-    return _launch("mont_mul", torch.broadcast_tensors(a, b), LIMBS, LIMBS)
+    return launch("mont_mul", *torch.broadcast_tensors(a, b))
 
 
 def mont_sq(a):
-    return _launch("mont_sq", (a,), LIMBS, LIMBS)
+    return launch("mont_sq", a)

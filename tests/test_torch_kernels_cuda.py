@@ -41,11 +41,15 @@ def kernel_args(name, n, rng, dev):
     return relaxed_rows(n, rng, dev), relaxed_rows(n, rng, dev)
 
 
-# Edges of the kernels' 32-row tiles and 128-row blocks (and of 16-row
-# tiles), the main path's row counts, and counts past one wave of the
-# persistent blocks (each block then walks several tiles).
-ROW_COUNTS = (1, 12, 15, 16, 17, 31, 32, 33, 36, 63, 64, 65, 127, 128, 129, 4096, 4098,
-              4099, 6147, 24588, 73764)
+# Edges of the kernels' tiles (16 rows at eight shares a row, 32 rows at
+# four and in mul_acc), of the one-row path (n = 1) and the one-tile path
+# (n <= 16), of sq_acc's 128-row blocks, of the switch from eight to four
+# shares a row (16 rows per SM: 2,112 rows on an H100 SXM) and of redc's
+# switch to its column-range body (five 32-row tiles per SM: 21,120 rows);
+# the main path's row counts; and counts past one wave of the persistent
+# blocks (each block then walks several tiles).
+ROW_COUNTS = (1, 2, 12, 15, 16, 17, 31, 32, 33, 36, 63, 64, 65, 127, 128, 129, 2048, 2049,
+              2112, 2113, 4096, 4098, 4099, 6147, 21120, 21121, 24588, 73764)
 
 
 @pytest.mark.cuda
@@ -81,6 +85,34 @@ def test_kernel_matches_plain_on_unaligned_rows(name, cuda_device):
         torch.cuda.synchronize()
         want = getattr(fp, f"plain_{name}")(*args)
         assert torch.equal(got, want), f"{name} differs on unaligned rows at n={n}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 12, 16, 17, 2048, 4096])
+def test_mont_mul_by_a_broadcast_row(n, cuda_device):
+    """One row against many, the way `fp.pow_const` multiplies by one_mont
+    (and by its base) at every step of a Fermat chain."""
+    rng = np.random.default_rng(8)
+    a = relaxed_rows(n, rng, cuda_device)
+    for row in (fp.one_mont((1,), cuda_device), relaxed_rows(1, rng, cuda_device)):
+        got = fp_cuda.mont_mul(a, row)
+        torch.cuda.synchronize()
+        assert got.shape == (n, fp.LIMBS)
+        assert torch.equal(got, fp.plain_mont_mul(a, row.expand(n, -1)))
+        assert torch.equal(fp_cuda.mont_mul(row, a), got)  # the product is symmetric
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["mont_mul", "mont_sq"])
+def test_exact_zero_rows_stay_exact_zero(name, cuda_device):
+    rng = np.random.default_rng(9)
+    for n in (1, 2, 16, 17, 2048, 4098):
+        args = kernel_args(name, n, rng, cuda_device)
+        args[0][1::3] = 0
+        got = getattr(fp_cuda, name)(*args)
+        torch.cuda.synchronize()
+        assert not got[1::3].any(), f"{name}: a zero row is not exact zero at n={n}"
+        assert torch.equal(got, getattr(fp, f"plain_{name}")(*args))
 
 
 @pytest.mark.cuda
