@@ -19,19 +19,34 @@ Phases, in order; any failure exits non-zero and prints no result:
             counts of N_TIMED: 50 launches captured in one CUDA graph, the
             replays timed with CUDA events (so the wrappers' host work is
             not in it), each time beside its bound.
-4. main     the port's main path through its entry points: 128 synthetic
-            sets (bench.py's seed 17) verify True, two swapped signatures
-            verify False, then 16 x 128 = 2048 sets merged into one
-            `device_batch_verify` with fresh blinding (1 warm-up, 3 timed
-            runs), all True. Launch counts are reset just before and read
-            just after; every kernel must have launched.
-5. profile  where the time of one merged 2048-set verify goes: each
-            kernel's launches per verify by row count, and its kernel ms per
-            verify (launches x graph-replay time at each of those row
-            counts); one more verify split at its three stage boundaries
-            (wall time and kernel launches per stage), then one under
-            `torch.profiler` for the card's busy time, its idle share of the
-            unprofiled verify's wall time, and the device time per kernel.
+4. main     the port's main path through its entry points, compressed bytes
+            in and verdict out, with device input prep (ops/prep.py) on the
+            card: 128 synthetic sets (bench.py's seed 17) verify True, two
+            swapped signatures verify False, and a batch with one pubkey
+            off the curve and one signature off the G2 subgroup verifies
+            False through prep's own ok bits. Then 16 copies of the 128
+            sets' bytes and messages (bench.py's merge) go through
+            `build_device_inputs(..., size=2048)` on device prep (1 warm-up,
+            3 timed runs); the 128 unique sets' prepped arrays must equal
+            the pure-Python oracle's prep on canonical values (the oracle
+            runs once, on 128 sets, outside every timed window); and the
+            device-prepped 2048 sets go through `device_batch_verify` with
+            fresh blinding (1 warm-up, 3 timed runs), all True. Prints the
+            prep time per 2048 sets, the oracle's per 128, and
+            bytes-to-verdict sigs/s beside verify-only sigs/s. Launch
+            counts are reset just before and read just after; every kernel
+            must have launched.
+5. profile  where the time of one merged 2048-set verify and of one
+            2048-set prep goes: each kernel's launches per verify and per
+            prep by row count, and its kernel ms per verify and per prep
+            (launches x graph-replay time at each of those row counts); one
+            more verify split at its three stage boundaries and one more
+            prep at its stages (host bytes, then field, subgroup, hash
+            finish; wall time, kernel launches and kernel ms per stage),
+            then one verify and one stage-split prep under
+            `torch.profiler` for the card's busy time (per prep stage
+            too), its idle share of the unprofiled wall time, and the
+            device time per kernel.
 6. check    a Miller loop + final exponentiation of two pairs on the card
             equals the CPU path (the plain versions) limb for limb, and
             equals e(P, Q) from the host pairing check on canonical values.
@@ -46,8 +61,9 @@ version and times it beside this source's, in turns (parent, this, this,
 parent), at the row counts of N_TIMED and of one merged verify, each
 with its ms per verify.
 
-Host prep is the pure-Python oracle (tens of ms per set); it runs outside
-every timed window and is printed on its own line.
+The pure-Python oracle prep (`prep="off"`, tens of ms per set) is the
+reference for device prep; it runs once, outside every timed window, and is
+printed on its own line.
 """
 
 import argparse
@@ -61,14 +77,18 @@ import time
 # Row counts the main path launches the Fp kernels at (a 2048-set verify:
 # 1 in the Fermat chains, 12/36 in the final exponentiation, 2048 in the
 # Fermat chain of the blinded public keys, 4096-6147 in the curve and tower
-# steps, 24588-73764 in the Miller loop), the edges of the kernels' paths
+# steps, 24588-73764 in the Miller loop; a 2048-set prep: PREP_ROWS, 20480
+# and 30720 in its Fp2 square-root chain), the edges of the kernels' paths
 # (one row, one 16- or 32-row tile), tiles, 128-row blocks and share counts
 # (eight a row up to 16 rows per SM: 2112 on an H100 SXM), the two sides of
 # redc's switch to its column-range body (past five 32-row tiles per SM:
 # 21120), and 110646, the row count the first kernel table was measured at.
-N_TIMED = (1, 12, 36, 2048, 4096, 6147, 21120, 21121, 24588, 73764, 110646)
-N_KERNEL_CHECK = tuple(sorted({*N_TIMED, 2, 15, 16, 17, 31, 32, 33, 63, 64, 65, 511, 512,
-                               513, 2049, 2112, 2113, 4098}))
+# Phase 4 fails if a prep launches a kernel at a row count not checked here.
+PREP_ROWS = (2048, 4096, 6144, 8192, 12288, 20480, 30720, 81920, 122880)
+N_TIMED = (1, 12, 36, 2048, 4096, 6147, 20480, 21120, 21121, 24588, 30720, 73764, 110646,
+           122880)
+N_KERNEL_CHECK = tuple(sorted({*N_TIMED, *PREP_ROWS, 2, 15, 16, 17, 31, 32, 33, 63, 64, 65,
+                               511, 512, 513, 2049, 2112, 2113, 4098}))
 N_COMPARE = 110646
 BATCH = 128  # sets per gossip job
 MERGE_JOBS = 16  # jobs merged into one RLC batch
@@ -92,7 +112,7 @@ SOURCE = "lodestar_tpu_torch/ops/csrc/fp_kernels.cu"
 # Each kernel's function name as a profiler trace shows it (demangled).
 SYMBOL = {
     "mul_acc": "mul_acc_kernel(",
-    "sq_acc": "sq_acc_kernel(",
+    "sq_acc": "sq_acc_kernel<",  # every <PATH, W> instantiation
     "redc": "redc_kernel<",  # every <PATH, W> instantiation
     "mont_mul": "mont_mul_kernel<",
     "mont_sq": "mont_sq_kernel<",
@@ -267,19 +287,95 @@ def check_kernels(dev):
         }
         say(f"kernel {name}: bit-exact at N={list(N_KERNEL_CHECK)}; at N={N_COMPARE}: "
             f"{report[name]['ms']:.4f} ms (plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms by {by})")
+    paths = {}
+    for n in N_KERNEL_CHECK:
+        paths.setdefault(sq_acc_path(n), []).append(n)
+    say(f"kernel sq_acc: bit-exact on each path at N = {json.dumps(paths)}")
+    for n in N_TIMED:
+        sq, mul = report["sq_acc"]["at_rows"][n], report["mul_acc"]["at_rows"][n]
+        say(f"kernel sq_acc N={n}: {sq['ms'] * 1e3:.2f} us against mul_acc's "
+            f"{mul['ms'] * 1e3:.2f} us in this call (bound {sq['bound_ms'] * 1e3:.2f} us)")
     return report
+
+
+def sq_acc_path(n):
+    """The path `lodestar_fp_sq_acc` takes for n rows (fp_kernels.cu): one
+    row; one tile of 16 rows at eight shares a row; the tile loop at eight
+    shares up to 16 rows per SM, else at four."""
+    import torch
+
+    if n == 1:
+        return "one row"
+    if n <= 16 * torch.cuda.get_device_properties(0).multi_processor_count:
+        return "one tile, 8 shares" if n <= 16 else "tile loop, 8 shares"
+    return "tile loop, 4 shares"
 
 
 # --- phase 4 -----------------------------------------------------------------
 
 
+def rows_since(before):
+    """{kernel: {rows: launches}} of the launches since the snapshot `before`
+    of fp_cuda.ROWS."""
+    from lodestar_tpu_torch.ops import fp_cuda
+
+    return {k: {n: c - before[k].get(n, 0) for n, c in sorted(fp_cuda.ROWS[k].items())
+                if c > before[k].get(n, 0)}
+            for k in fp_cuda.KERNELS}
+
+
+def rows_snapshot():
+    from lodestar_tpu_torch.ops import fp_cuda
+
+    return {k: dict(v) for k, v in fp_cuda.ROWS.items()}
+
+
+def invalid_batch(sets):
+    """The first 8 sets with pubkey 2 replaced by a well-formed encoding of
+    an x off the curve, and signature 5 by a point on the twist but off the
+    G2 subgroup: both pass the host's structural checks, so only prep's
+    device ok bits can reject the batch. Points from a fixed seed."""
+    import dataclasses
+
+    import numpy as np
+
+    from lodestar_tpu_torch.crypto.bls import curve as C
+    from lodestar_tpu_torch.crypto.bls import fields as F
+    from lodestar_tpu_torch.crypto.bls import serdes
+
+    rng = np.random.default_rng(4)
+
+    def rand_fp():
+        while True:
+            v = int.from_bytes(rng.bytes(48), "big")
+            if v < F.P:
+                return v
+
+    while True:
+        x = rand_fp()
+        if F.fp_sqrt((x * x * x + 4) % F.P) is None:
+            break
+    pk = bytearray(x.to_bytes(48, "big"))
+    pk[0] |= 0x80
+    while True:
+        x2 = (rand_fp(), rand_fp())
+        y2 = F.fp2_sqrt(C.g2_rhs(x2))
+        if y2 is not None and not C.g2_in_subgroup((x2, y2)):
+            break
+    bad = list(sets[:8])
+    bad[2] = dataclasses.replace(bad[2], pubkey=bytes(pk))
+    bad[5] = dataclasses.replace(bad[5], signature=serdes.g2_to_bytes((x2, y2)))
+    return bad
+
+
 def main_path(dev, smi):
     import dataclasses
 
+    import numpy as np
     import torch
 
     from lodestar_tpu_torch.models import batch_verify as bv
-    from lodestar_tpu_torch.ops import fp_cuda
+    from lodestar_tpu_torch.ops import fp, fp_cuda
 
     t0 = time.perf_counter()
     sets = bv.make_synthetic_sets(BATCH, seed=17)
@@ -287,31 +383,72 @@ def main_path(dev, smi):
     tampered = list(sets)
     tampered[0] = dataclasses.replace(sets[0], signature=sets[1].signature)
     tampered[1] = dataclasses.replace(sets[1], signature=sets[0].signature)
+    bad = invalid_batch(sets)
+    merged = BATCH * MERGE_JOBS
+    merged_sets = sets * MERGE_JOBS  # bench.py's merge: 16 copies of the job's bytes
 
     fp_cuda.reset_launches()  # the main path's run starts here
+    if not bv.device_prep_active(device=dev):
+        fail("device prep is not the default on the card")
     t0 = time.perf_counter()
     if bv.verify_signature_sets_device(sets) is not True:
         fail(f"the valid {BATCH}-set batch did not verify")
-    say(f"main: {BATCH}-set batch verifies True ({time.perf_counter() - t0:.2f} s with host prep)")
+    say(f"main: {BATCH}-set batch verifies True ({time.perf_counter() - t0:.2f} s, device prep "
+        "included)")
     t0 = time.perf_counter()
     if bv.verify_signature_sets_device(tampered) is not False:
         fail("the batch with two swapped signatures verified")
     say(f"main: swapped-signature batch verifies False ({time.perf_counter() - t0:.2f} s)")
-
+    parsed = bv._parse_host_arrays(bad, 8)
+    if parsed is None or not (parsed[2].all() and parsed[5].all()):
+        fail("the invalid-point batch should pass the host's structural checks")
     t0 = time.perf_counter()
-    inputs = bv.build_device_inputs(sets, size=BATCH)
-    if inputs is None:
-        fail("host prep rejected the synthetic sets")
-    say(f"host: prep of {BATCH} sets (pure-Python oracle) {time.perf_counter() - t0:.2f} s, "
-        "outside the timed window")
-    pk, h, sig, _, _ = inputs
-    merged = BATCH * MERGE_JOBS
+    if bv.build_device_inputs(bad) is not None or bv.verify_signature_sets_device(bad):
+        fail("the batch with a pubkey off the curve and a signature off G2 was not rejected")
+    say(f"main: off-curve pubkey + off-subgroup signature batch rejected by prep's device ok "
+        f"bits, verifies False ({time.perf_counter() - t0:.2f} s)")
 
-    def tile(x):
-        return torch.cat([x] * MERGE_JOBS, dim=0)
+    # the merged 2048 sets, compressed bytes in: device prep
+    if bv.build_device_inputs(merged_sets, size=merged) is None:
+        fail("warm-up device prep rejected the merged sets")
+    prep_times, per_prep_rows, inputs = [], None, None
+    for i in range(TIMED_RUNS):
+        before = rows_snapshot()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        inputs = bv.build_device_inputs(merged_sets, size=merged)
+        torch.cuda.synchronize()
+        prep_times.append(time.perf_counter() - t0)
+        if inputs is None:
+            fail(f"timed device prep {i} rejected the merged sets")
+        if per_prep_rows is None:
+            per_prep_rows = rows_since(before)
+    prep_mean = sum(prep_times) / len(prep_times)
+    say(f"main: device prep of {merged} sets x{TIMED_RUNS}: "
+        f"{', '.join(f'{t:.3f}' for t in prep_times)} s on {smi}")
+    unchecked = sorted({n for rows in per_prep_rows.values() for n in rows} - set(N_KERNEL_CHECK))
+    if unchecked:
+        fail(f"prep launched kernels at row counts phase 3 did not check: {unchecked}")
+    pk_m, h_m, sig_m, _, mask_m = inputs
 
-    pk_m, h_m, sig_m = (tuple(tile(c) for c in pt) for pt in (pk, h, sig))
-    mask_m = torch.ones(merged, dtype=torch.bool, device=dev)
+    # the 128 unique sets' device-prepped arrays against the oracle's prep
+    t0 = time.perf_counter()
+    oracle = bv.prepare_sets(sets)
+    oracle_s = time.perf_counter() - t0
+    if oracle is None:
+        fail("the oracle prep rejected the synthetic sets")
+    for name, dev_pt, host_pt in zip(("pk", "h", "sig"), (pk_m, h_m, sig_m), oracle):
+        for c, (d, h) in enumerate(zip(dev_pt, host_pt)):
+            got = fp.from_mont(d[:BATCH])
+            want = fp.from_mont(torch.as_tensor(h, device=dev))
+            if not torch.equal(got, want):
+                fail(f"device prep's {name}[{c}] differs from the oracle's on canonical values")
+            if not all(torch.equal(d[:BATCH], d[k * BATCH:(k + 1) * BATCH])
+                       for k in range(1, MERGE_JOBS)):
+                fail(f"device prep's {name}[{c}] differs between copies of the same sets")
+    say(f"main: device-prepped pk/h/sig of the {BATCH} unique sets == the oracle's prep on "
+        f"canonical values; oracle prep {oracle_s:.2f} s per {BATCH} sets (outside the timed "
+        "windows)")
 
     def fresh_bits():
         bits, _ = bv._blinding_and_mask(merged, merged)
@@ -322,7 +459,7 @@ def main_path(dev, smi):
     times, per_verify_rows = [], None
     for i in range(TIMED_RUNS):
         bits = fresh_bits()
-        before_rows = {k: dict(v) for k, v in fp_cuda.ROWS.items()}
+        before = rows_snapshot()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         ok = bool(bv.device_batch_verify(pk_m, h_m, sig_m, bits, mask_m))
@@ -331,23 +468,36 @@ def main_path(dev, smi):
         if not ok:
             fail(f"timed merged batch {i} did not verify")
         if per_verify_rows is None:
-            per_verify_rows = {
-                k: {n: c - before_rows[k].get(n, 0) for n, c in sorted(fp_cuda.ROWS[k].items())
-                    if c > before_rows[k].get(n, 0)}
-                for k in fp_cuda.KERNELS
-            }
+            per_verify_rows = rows_since(before)
     launches = dict(fp_cuda.LAUNCHES)  # the main path's run ends here
     per_verify = {k: sum(rows.values()) for k, rows in per_verify_rows.items()}
+    per_prep = {k: sum(rows.values()) for k, rows in per_prep_rows.items()}
     mean = sum(times) / len(times)
     say(f"main: {merged}-set merged batch x{TIMED_RUNS}: "
         f"{', '.join(f'{t:.3f}' for t in times)} s; {merged / mean:.1f} sigs/s on {smi}")
+    say(f"main: bytes to verdict {merged / (prep_mean + mean):.1f} sigs/s (device prep "
+        f"{prep_mean:.3f} s + verify {mean:.3f} s per {merged} sets) against verify-only "
+        f"{merged / mean:.1f} sigs/s; oracle prep {oracle_s:.2f} s per {BATCH} sets")
     say(f"main: launches over the main path {launches}")
     say(f"main: launches per {merged}-set verify {per_verify}")
+    say(f"main: launches per {merged}-set prep {per_prep}")
     missing = [k for k in fp_cuda.KERNELS if launches[k] <= 0]
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
-    return (launches, per_verify, per_verify_rows, merged / mean,
-            (pk_m, h_m, sig_m, mask_m, fresh_bits))
+    missing = [k for k in fp_cuda.KERNELS if per_prep[k] <= 0]
+    if missing:
+        fail(f"kernels never launched by the {merged}-set prep: {missing}")
+    return {
+        "launches": launches,
+        "per_verify_rows": per_verify_rows,
+        "per_prep_rows": per_prep_rows,
+        "sigs_per_s": merged / mean,
+        "bytes_to_verdict_sigs_per_s": merged / (prep_mean + mean),
+        "prep_s": prep_mean,
+        "oracle_s_per_128": oracle_s,
+        "merged_inputs": (pk_m, h_m, sig_m, mask_m, fresh_bits),
+        "merged_sets": merged_sets,
+    }
 
 
 # --- phase 5 -----------------------------------------------------------------
@@ -381,12 +531,24 @@ def verify_by_stage(pk, h, sig, bits, mask):
     return bool(ok), stages
 
 
-def busy_ms(events):
-    """Union of the device kernel intervals of a profiler trace, in ms."""
+STAGE_MARK = "prep stage: "  # the record_function name of a prep stage
+
+
+def device_events(events):
+    """The trace's device work: its CUDA events but the GPU-side copies of
+    the prep stages' `record_function` ranges, which span whole stages."""
     import torch
 
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    return [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.name.startswith(STAGE_MARK)]
+
+
+def busy_ms(events, lo=float("-inf"), hi=float("inf")):
+    """Union of the device work intervals of a profiler trace, clipped to
+    the window [lo, hi] (profiler microseconds), in ms."""
+    spans = sorted((max(e.time_range.start, lo), min(e.time_range.end, hi))
+                   for e in device_events(events)
+                   if e.time_range.end > lo and e.time_range.start < hi)
     busy, cur_s, cur_e = 0, None, None
     for s, e in spans:
         if cur_e is None or s > cur_e:
@@ -400,99 +562,204 @@ def busy_ms(events):
     return busy / 1e3  # profiler times are in microseconds
 
 
-def kernel_ms_per_verify(per_verify_rows, dev):
-    """{name: ms}: launches x graph-replay device time, summed over the row
-    counts one merged verify launches the kernel at."""
+def graph_times(runs, dev):
+    """{name: {rows: ms}}: graph-replay device time of each kernel at every
+    row count the runs ({name: {rows: launches}} each) launch it at."""
     import numpy as np
 
     from lodestar_tpu_torch.ops import fp_cuda
 
     rng = np.random.default_rng(7)
     out = {}
-    for name, by_rows in per_verify_rows.items():
+    for name in fp_cuda.KERNELS:
         kernel = getattr(fp_cuda, name)
-        total = 0.0
-        for n, count in by_rows.items():
+        out[name] = {}
+        for n in sorted({n for run in runs for n in run.get(name, {})}):
             args = kernel_inputs(name, n, rng, dev)
-            total += count * graph_ms(lambda: kernel(*args), iters=20, replays=3)
-        out[name] = total
+            out[name][n] = graph_ms(lambda: kernel(*args), iters=20, replays=3)
     return out
 
 
-def profile_merged(merged_inputs, per_verify_rows, smi):
+def kernel_ms(per_rows, times):
+    """{name: ms}: launches x graph-replay device time, summed over the row
+    counts of one run ({name: {rows: launches}})."""
+    return {name: sum(c * times[name][n] for n, c in by_rows.items())
+            for name, by_rows in per_rows.items()}
+
+
+def prep_by_stage(merged_sets, dev):
+    """One device prep of the merged sets split at its stages: the host byte
+    stage (with the copy to the card), then the three device stages of
+    `prepare_arrays_fused`. Returns the all-valid verdict and {stage: (wall
+    s, {kernel: {rows: launches}})}, host clock after a synchronize."""
     import torch
 
     from lodestar_tpu_torch.models import batch_verify as bv
+    from lodestar_tpu_torch.ops import prep as dp
 
-    pk, h, sig, mask, fresh_bits = merged_inputs
-    for name, by_rows in per_verify_rows.items():
-        say(f"profile: {name} launches per {mask.numel()}-set verify by row count "
-            f"{{rows: launches}}: {json.dumps(by_rows)}")
-    per_verify_ms = kernel_ms_per_verify(per_verify_rows, mask.device)
-    ok, stages = verify_by_stage(pk, h, sig, fresh_bits(), mask)
-    if not ok:
-        fail("the stage-split merged batch did not verify")
-    wall = sum(t for t, _ in stages.values())
-    say(f"profile: stage-split {mask.numel()}-set verify {wall:.3f} s on {smi}")
-    for name, (t, n) in stages.items():
-        say(f"profile: stage {name}: {t:.3f} s ({100 * t / wall:.1f}%), {n} kernel launches")
+    stages = {}
 
-    bits = fresh_bits()
+    def timed(name, fn, *args):
+        before = rows_snapshot()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.profiler.record_function(STAGE_MARK + name):  # a profiler window
+            res = fn(*args)
+            torch.cuda.synchronize()
+        stages[name] = (time.perf_counter() - t0, rows_since(before))
+        return res
+
+    def host_bytes():
+        parsed = bv._parse_host_arrays(merged_sets, len(merged_sets))
+        pk, pk_sign, _, sig, sig_sign, _, lo, hi = (torch.as_tensor(a, device=dev) for a in parsed)
+        return pk, pk_sign, sig, sig_sign, lo, hi
+
+    args = timed("host bytes", host_bytes)
+    pk_x, pk_y, pk_curve, sig_x, sig_y, sig_curve, q0, q1 = timed(
+        "field", dp._prep_field_stage, *args)
+    pk_ok, sig_ok = timed("subgroup", dp._prep_subgroup_stage,
+                          pk_x, pk_y, pk_curve, sig_x, sig_y, sig_curve)
+    timed("hash finish", dp.hash_finish, q0, q1)
+    return bool(pk_ok.all() and sig_ok.all()), stages
+
+
+def profiled(run):
+    """run() under `torch.profiler`: (its result, wall ms with the profiler
+    on, the trace's events)."""
+    import torch
+
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        ok = bool(bv.device_batch_verify(pk, h, sig, bits, mask))
+        res = run()
         torch.cuda.synchronize()
-        prof_wall_ms = (time.perf_counter() - t0) * 1e3
-    if not ok:
-        fail("the profiled merged batch did not verify")
-    events = prof.events()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return res, wall_ms, prof.events()
+
+
+def report_profile(label, events, prof_wall_ms, wall_ms, per_ms, smi):
+    """Print the card's busy time and idle share of the unprofiled wall
+    (`wall_ms`; the profiler slows the host, not the card), the top device
+    kernels, and each Fp kernel's profiler ms beside launches x graph time
+    (`per_ms`). Returns {kernel: profiler ms}, or None values when the
+    trace holds no device events."""
+    import torch
+
     host_ops = sum(1 for e in events if e.device_type == torch.autograd.DeviceType.CPU
-                   and e.cpu_parent is None and e.name.startswith("aten::"))
-    say(f"profile: profiled verify {prof_wall_ms:.1f} ms wall (profiler on), "
+                   and e.name.startswith("aten::")
+                   and (e.cpu_parent is None or e.cpu_parent.name.startswith(STAGE_MARK)))
+    say(f"profile: profiled {label} {prof_wall_ms:.1f} ms wall (profiler on), "
         f"{host_ops} top-level aten calls")
     busy = busy_ms(events)
     if busy == 0:
-        say("profile: device busy time: not measured (the trace holds no device events)")
-        for name, ms in per_verify_ms.items():
-            say(f"profile: {name} kernel ms per verify {ms:.2f} (graph replay x launches); "
+        say(f"profile: {label} device busy time: not measured (the trace holds no device events)")
+        for name, ms in per_ms.items():
+            say(f"profile: {name} kernel ms per {label} {ms:.2f} (graph replay x launches); "
                 "profiler: not measured")
-        return per_verify_ms, dict.fromkeys(per_verify_ms)
-    # The profiler slows the host, not the card: the idle share is read
-    # against the unprofiled stage-split verify's wall time.
-    say(f"profile: device busy {busy:.1f} ms; idle {100 * (1 - busy / (wall * 1e3)):.1f}% of "
-        f"the unprofiled {wall * 1e3:.1f} ms ({100 * (1 - busy / prof_wall_ms):.1f}% of the "
+        return dict.fromkeys(per_ms)
+    say(f"profile: {label} device busy {busy:.1f} ms; idle {100 * (1 - busy / wall_ms):.1f}% of "
+        f"the unprofiled {wall_ms:.1f} ms ({100 * (1 - busy / prof_wall_ms):.1f}% of the "
         f"profiled wall) on {smi}")
     by_kernel = {}
-    for e in events:
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            k = by_kernel.setdefault(e.name, [0, 0.0])
-            k[0] += 1
-            k[1] += (e.time_range.end - e.time_range.start) / 1e3
+    for e in device_events(events):
+        k = by_kernel.setdefault(e.name, [0, 0.0])
+        k[0] += 1
+        k[1] += (e.time_range.end - e.time_range.start) / 1e3
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])
     for name, (count, ms) in top[:8]:
-        say(f"profile: kernel {ms:9.2f} ms {count:7d}x  {name[:90]}")
-    profiled = {}
+        say(f"profile: {label} kernel {ms:9.2f} ms {count:7d}x  {name[:90]}")
+    prof_ms = {}
     for name, symbol in SYMBOL.items():
         hits = [(c, ms) for n, (c, ms) in by_kernel.items() if symbol in n]
-        profiled[name] = sum(ms for _, ms in hits)
-        say(f"profile: fp kernel {name}: {per_verify_ms[name]:.2f} ms per verify from graph "
-            f"replay x launches; profiler {profiled[name]:.2f} ms over "
+        prof_ms[name] = sum(ms for _, ms in hits)
+        say(f"profile: fp kernel {name}: {per_ms[name]:.2f} ms per {label} from graph "
+            f"replay x launches; profiler {prof_ms[name]:.2f} ms over "
             f"{sum(c for c, _ in hits)} launches")
-    say(f"profile: fp kernels {sum(profiled.values()):.2f} ms of {busy:.1f} ms busy "
-        f"(graph replay x launches: {sum(per_verify_ms.values()):.2f} ms)")
-    return per_verify_ms, profiled
+    say(f"profile: fp kernels {sum(prof_ms.values()):.2f} ms of {busy:.1f} ms busy per {label} "
+        f"(graph replay x launches: {sum(per_ms.values()):.2f} ms)")
+    return prof_ms
+
+
+def profile_main(main, smi):
+    """Phase 5: one merged verify and one 2048-set prep, each by stage and
+    under the profiler. Returns ({kernel: ms}, {kernel: profiler ms}) per
+    verify and per prep."""
+    from lodestar_tpu_torch.models import batch_verify as bv
+
+    pk, h, sig, mask, fresh_bits = main["merged_inputs"]
+    merged = mask.numel()
+    runs = {"verify": main["per_verify_rows"], "prep": main["per_prep_rows"]}
+    times = graph_times(runs.values(), mask.device)
+    out = {}
+    for label, per_rows in runs.items():
+        for name, by_rows in per_rows.items():
+            say(f"profile: {name} launches per {merged}-set {label} by row count "
+                f"{{rows: launches}}: {json.dumps(by_rows)}")
+        out[label] = kernel_ms(per_rows, times)
+
+    ok, stages = verify_by_stage(pk, h, sig, fresh_bits(), mask)
+    if not ok:
+        fail("the stage-split merged batch did not verify")
+    wall = sum(t for t, _ in stages.values())
+    say(f"profile: stage-split {merged}-set verify {wall:.3f} s on {smi}")
+    for name, (t, n) in stages.items():
+        say(f"profile: verify stage {name}: {t:.3f} s ({100 * t / wall:.1f}%), {n} kernel launches")
+    bits = fresh_bits()
+    ok, prof_wall, events = profiled(lambda: bool(bv.device_batch_verify(pk, h, sig, bits, mask)))
+    if not ok:
+        fail("the profiled merged batch did not verify")
+    verify_prof = report_profile("verify", events, prof_wall, wall * 1e3, out["verify"], smi)
+
+    ok, stages = prep_by_stage(main["merged_sets"], mask.device)
+    if not ok:
+        fail("the stage-split prep rejected the merged sets")
+    wall = sum(t for t, _ in stages.values())
+    say(f"profile: stage-split {merged}-set prep {wall:.3f} s on {smi}")
+    for name, (t, by_kernel) in stages.items():
+        n = sum(c for rows in by_kernel.values() for c in rows.values())
+        say(f"profile: prep stage {name}: {t:.3f} s ({100 * t / wall:.1f}%), {n} kernel launches, "
+            f"{sum(kernel_ms(by_kernel, times).values()):.2f} kernel ms (graph replay x "
+            f"launches) {json.dumps({k: v for k, v in by_kernel.items() if v})}")
+    (ok, _), prof_wall, events = profiled(lambda: prep_by_stage(main["merged_sets"], mask.device))
+    if not ok:
+        fail("the profiled prep rejected the merged sets")
+    prep_prof = report_profile("prep", events, prof_wall, wall * 1e3, out["prep"], smi)
+    prep_stage_busy(events, stages, smi)
+    return out, {"verify": verify_prof, "prep": prep_prof}
+
+
+def prep_stage_busy(events, stages, smi):
+    """The card's busy time in each stage of the profiled prep (its
+    `record_function` window, which ends after a synchronize) and its idle
+    share of the same stage's unprofiled wall time. Not measured when the
+    stages' busy times do not add up to the whole trace's (the windows and
+    the device events would then not share one clock)."""
+    import torch
+
+    windows = {e.name[len(STAGE_MARK):]: (e.time_range.start, e.time_range.end)
+               for e in events if e.device_type == torch.autograd.DeviceType.CPU
+               and e.name.startswith(STAGE_MARK)}
+    busy = {name: busy_ms(events, *windows[name]) for name in stages if name in windows}
+    total = busy_ms(events)
+    if len(busy) != len(stages) or abs(sum(busy.values()) - total) > 0.05 * total:
+        say(f"profile: prep device busy by stage: not measured (stage windows hold "
+            f"{sum(busy.values()):.1f} of {total:.1f} ms)")
+        return
+    for name, (t, _) in stages.items():
+        say(f"profile: prep stage {name}: device busy {busy[name]:.1f} ms, idle "
+            f"{100 * (1 - busy[name] / (t * 1e3)):.1f}% of its unprofiled {t * 1e3:.1f} ms "
+            f"on {smi}")
 
 
 # --- comparison with an earlier commit's kernels (--compare-parent) -----------
 
 
-def compare_kernels(parent, per_verify_rows, dev, smi):
+def compare_kernels(parent, main_run, dev, smi):
     """Each kernel of the parent's library against its plain version, and its
     device time beside this source's, in turns (parent, this, this, parent),
-    at the row counts of N_TIMED and of one merged verify; ms per verify =
-    launches x time at each row count."""
+    at the row counts of N_TIMED and of one merged verify and one 2048-set
+    prep; ms per verify and per prep = launches x time at each row count."""
     import numpy as np
     import torch
 
@@ -504,7 +771,8 @@ def compare_kernels(parent, per_verify_rows, dev, smi):
     for name in fp_cuda.KERNELS:
         plain = getattr(fp, f"plain_{name}")
         us = {t: {} for t in libs}
-        for n in sorted({*N_TIMED, *per_verify_rows[name]}):
+        runs_rows = {label: main_run[f"per_{label}_rows"][name] for label in ("verify", "prep")}
+        for n in sorted({*N_TIMED, *runs_rows["verify"], *runs_rows["prep"]}):
             args = kernel_inputs(name, n, rng, dev)
             want = plain(*args)
             runs = {t: [] for t in libs}
@@ -518,11 +786,12 @@ def compare_kernels(parent, per_verify_rows, dev, smi):
                 us[t][n] = 1e3 * sum(runs[t]) / len(runs[t])
             say(f"compare: {name} N={n}: parent {us['parent'][n]:.2f} us, this "
                 f"{us['this'][n]:.2f} us (graph replay, in turns)")
-        per_verify = {t: sum(c * us[t][n] for n, c in per_verify_rows[name].items()) / 1e3
-                      for t in libs}
-        result[name] = {"us": us, "ms_per_2048_verify": per_verify}
-        say(f"compare: {name} ms per verify parent {per_verify['parent']:.2f}, this "
-            f"{per_verify['this']:.2f} on {smi}")
+        result[name] = {"us": us}
+        for label, by_rows in runs_rows.items():
+            per_run = {t: sum(c * us[t][n] for n, c in by_rows.items()) / 1e3 for t in libs}
+            result[name][f"ms_per_2048_{label}"] = per_run
+            say(f"compare: {name} ms per {label} parent {per_run['parent']:.2f}, this "
+                f"{per_run['this']:.2f} on {smi}")
     say("compare: " + json.dumps(result))
     return result
 
@@ -604,29 +873,36 @@ def main():
     # 3. kernels vs plain versions
     report = check_kernels(dev)
     # 4. main path
-    launches, per_verify, per_verify_rows, sigs_per_s, merged_inputs = main_path(dev, smi)
-    # 5. profile of one merged verify
-    per_verify_ms, profiled_ms = profile_merged(merged_inputs, per_verify_rows, smi)
+    main_run = main_path(dev, smi)
+    # 5. profile of one merged verify and one 2048-set prep
+    per_ms, profiled_ms = profile_main(main_run, smi)
     # 6. check against the CPU path
     check_against_cpu(dev)
     if parent is not None:
-        compare_kernels(parent, per_verify_rows, dev, smi)
+        compare_kernels(parent, main_run, dev, smi)
 
     # 7. report
-    kernels = [
-        {
+    runs = {"verify": main_run["per_verify_rows"], "prep": main_run["per_prep_rows"]}
+    kernels = []
+    for name in fp_cuda.KERNELS:
+        entry = {
             "name": name,
             "route": "cuda",
             "source": SOURCE,
             "replaces": REPLACES[name],
             "status": "ok",
-            "launches": launches[name],
-            "launches_per_2048_verify": per_verify[name],
-            "launches_per_2048_verify_by_rows": per_verify_rows[name],
-            "ms_per_2048_verify": per_verify_ms[name],
-            "bound_ms_per_2048_verify": sum(count * bound(name, n)[0]
-                                            for n, count in per_verify_rows[name].items()),
-            "profiler_ms_per_2048_verify": profiled_ms[name],
+            "launches": main_run["launches"][name],
+        }
+        for label, per_rows in runs.items():
+            by_rows = per_rows[name]
+            entry.update({
+                f"launches_per_2048_{label}": sum(by_rows.values()),
+                f"launches_per_2048_{label}_by_rows": by_rows,
+                f"ms_per_2048_{label}": per_ms[label][name],
+                f"bound_ms_per_2048_{label}": sum(c * bound(name, n)[0] for n, c in by_rows.items()),
+                f"profiler_ms_per_2048_{label}": profiled_ms[label][name],
+            })
+        entry.update({
             "max_abs_err": report[name]["max_abs_err"],
             "ms": report[name]["ms"],
             "plain_ms": report[name]["plain_ms"],
@@ -635,10 +911,12 @@ def main():
             "library_ms": None,  # no single PyTorch call computes a Montgomery product
             "n": report[name]["n"],
             "at_rows": [{"n": n, **v} for n, v in report[name]["at_rows"].items()],
-        }
-        for name in fp_cuda.KERNELS
-    ]
-    say(f"result: {sigs_per_s:.1f} sigs/s ({BATCH * MERGE_JOBS}-set merged batch) on {smi}")
+        })
+        kernels.append(entry)
+    merged = BATCH * MERGE_JOBS
+    say(f"result: {main_run['sigs_per_s']:.1f} sigs/s verify-only, "
+        f"{main_run['bytes_to_verdict_sigs_per_s']:.1f} sigs/s bytes to verdict ({merged}-set "
+        f"merged batch, device prep {main_run['prep_s']:.3f} s) on {smi}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -5,15 +5,22 @@ shared final exponentiation: the semantics of blst's
 `verifyMultipleSignatures` that the reference worker calls
 (`packages/beacon-node/src/chain/bls/multithread/worker.ts:52-96`).
 PyTorch counterpart of the split schedule of
-``lodestar_tpu.models.batch_verify`` with host prep:
+``lodestar_tpu.models.batch_verify``:
 
-* **Host**: decompression, subgroup checks, hash-to-G2 of the signing
-  roots (the pure-Python oracle copies in ``crypto/bls``), and the
-  blinding coefficients.
-* **Device**: 64-bit blinded scalar multiplications in G1 and G2, the G2
-  fold to the aggregate signature, N+1 Miller loops in lockstep, one
-  product fold, one final exponentiation, the == 1 predicate. Every
-  base-field product runs in the CUDA kernels of ``ops/fp_cuda.py``.
+* **Prep** (`build_device_inputs`). With device prep active (the
+  default on CUDA, `configure_device_prep`): compressed bytes and
+  messages go through the host byte stage of ``ops/prep.py`` (flag
+  parsing, limb unpacking, SHA-256 expansion), then its three counted
+  device stages (decompression, subgroup checks, hash-to-G2). Otherwise
+  (`prep="off"`, and "auto" on the CPU) the pure-Python oracle copies in
+  ``crypto/bls`` decode, check and hash on the host. A device-prep error
+  propagates: nothing falls back to the oracle.
+* **Verify** (`device_batch_verify`): 64-bit blinded scalar
+  multiplications in G1 and G2, the G2 fold to the aggregate signature,
+  N+1 Miller loops in lockstep, one product fold, one final
+  exponentiation, the == 1 predicate, with fresh blinding coefficients
+  from the host. Every base-field product, in prep and verify, runs in
+  the CUDA kernels of ``ops/fp_cuda.py`` on the card.
 
 The blinding is mandatory: an unrandomized batch is forgeable (defects in
 different sets can cancel). Coefficients come from ``os.urandom`` (never
@@ -37,12 +44,18 @@ from ..crypto.bls.serdes import PointDecodeError, g1_from_bytes, g2_from_bytes
 from ..ops import curve as cv
 from ..ops import fp
 from ..ops import pairing as prg
+from ..ops import prep as dp
 from ..ops import tower as tw
+from ..ops.prep import pad_pow2, pad_rows
 
 __all__ = [
     "COEFF_BITS",
+    "PREP_MODES",
     "resolve_device",
+    "configure_device_prep",
+    "device_prep_active",
     "prepare_sets",
+    "prepare_sets_device",
     "pad_rows",
     "build_device_inputs",
     "inputs_from_numpy",
@@ -121,18 +134,34 @@ def _blinding_and_mask(n: int, size: int):
     return bits, mask
 
 
-def _pad_pow2(n: int, floor: int = 8) -> int:
-    """Next power of two >= max(floor, n): the size-class bucketing."""
-    return max(floor, 1 << (n - 1).bit_length())
+# --- input prep -------------------------------------------------------------------
+# "auto" runs device prep on a CUDA device and the oracle on the CPU (where
+# the plain versions would make device prep a slower host prep); "on"
+# forces device prep, "off" the oracle. Set process-wide by
+# `configure_device_prep` or per call by `build_device_inputs(prep=...)`.
+PREP_MODES = ("auto", "on", "off")
+_prep_mode = "auto"
 
 
-def pad_rows(a: np.ndarray, size: int) -> np.ndarray:
-    """Pad the leading axis to `size` by repeating row 0 (padding rows are
-    masked by every consumer)."""
-    n = a.shape[0]
-    if size == n:
-        return a
-    return np.concatenate([a, np.repeat(a[:1], size - n, axis=0)], axis=0)
+def configure_device_prep(mode: str | None = None) -> str:
+    """Set the process-wide prep mode; returns the previous one."""
+    global _prep_mode
+    prev = _prep_mode
+    if mode is not None:
+        if mode not in PREP_MODES:
+            raise ValueError(f"device prep mode must be one of {PREP_MODES}, got {mode!r}")
+        _prep_mode = mode
+    return prev
+
+
+def device_prep_active(mode: str | None = None, device=None) -> bool:
+    """Resolve a prep mode ("auto" follows the device: CUDA -> device prep)."""
+    mode = mode or _prep_mode
+    if mode not in PREP_MODES:
+        raise ValueError(f"device prep mode must be one of {PREP_MODES}, got {mode!r}")
+    if mode == "auto":
+        return torch.device("cuda" if device is None else device).type == "cuda"
+    return mode == "on"
 
 
 def prepare_sets(sets: list[SignatureSet]):
@@ -163,6 +192,66 @@ def prepare_sets(sets: list[SignatureSet]):
     )
 
 
+def _parse_host_arrays(sets: list[SignatureSet], size: int):
+    """The host byte stage of device prep: the wrong-length check, flag and
+    limb parsing of size-padded rows, and expand_message_xmd halves
+    (padding rows repeat row 0 and message 0). No device work. Returns
+    (pk_limbs, pk_sign, pk_struct, sig_limbs, sig_sign, sig_struct, lo,
+    hi) numpy arrays, or None when a set has an encoding of the wrong
+    length (a structural reject, never a device error)."""
+    n = len(sets)
+    if any(len(bytes(s.pubkey)) != 48 or len(bytes(s.signature)) != 96 for s in sets):
+        return None
+    pk_raw = np.frombuffer(b"".join(bytes(s.pubkey) for s in sets), dtype=np.uint8).reshape(n, 48)
+    sig_raw = np.frombuffer(
+        b"".join(bytes(s.signature) for s in sets), dtype=np.uint8
+    ).reshape(n, 96)
+    msgs = [bytes(s.message) for s in sets]
+    pk_limbs, pk_sign, pk_struct = dp.parse_g1_compressed(pad_rows(pk_raw, size))
+    sig_limbs, sig_sign, sig_struct = dp.parse_g2_compressed(pad_rows(sig_raw, size))
+    lo, hi = dp.hash_to_field_limbs(msgs + [msgs[0]] * (size - n))
+    return pk_limbs, pk_sign, pk_struct, sig_limbs, sig_sign, sig_struct, lo, hi
+
+
+def _prepare_sets_device_arrays(sets: list[SignatureSet], size: int, device):
+    """Device prep of `sets` on rows padded to `size`: the host byte stage,
+    then `prepare_arrays_fused` on `device` (`FUSED_PREP_LAUNCHES` stage
+    calls). Returns (pk, h, sig, ok): padded point tensors on the device
+    and the host bool "every set is valid", read back in one copy at the
+    end."""
+    n = len(sets)
+    parsed = _parse_host_arrays(sets, size)
+    if parsed is None:
+        return None, None, None, False
+    pk_limbs, pk_sign, pk_struct, sig_limbs, sig_sign, sig_struct, lo, hi = parsed
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=device)
+
+    pk, pk_ok, sig, sig_ok, h = dp.prepare_arrays_fused(
+        t(pk_limbs), t(pk_sign), t(sig_limbs), t(sig_sign), t(lo), t(hi)
+    )
+    dev_ok = torch.stack([pk_ok[:n], sig_ok[:n]]).cpu().numpy()  # the one host sync
+    valid = pk_struct[:n] & sig_struct[:n] & dev_ok[0] & dev_ok[1]
+    return pk, h, sig, bool(valid.all())
+
+
+def prepare_sets_device(sets: list[SignatureSet], device=None):
+    """Device twin of `prepare_sets`: the same contract (point arrays, or
+    None when a set is structurally invalid), compressed bytes in, no
+    big-integer arithmetic per set on the host. Runs on rows padded to the
+    verify's size classes and returns the first len(sets) rows, as tensors
+    on `device` (CUDA unless the caller names another)."""
+    if not sets:
+        return None
+    dev = resolve_device(device)
+    n = len(sets)
+    pk, h, sig, ok = _prepare_sets_device_arrays(sets, pad_pow2(n), dev)
+    if not ok:
+        return None
+    return tuple((c[0][:n], c[1][:n]) for c in (pk, h, sig))
+
+
 def inputs_from_numpy(pk, h, sig, coeff_bits, mask, device=None):
     """Numpy verify inputs (the layout ``build_device_inputs`` of either
     package returns: pk (x, y) each (N, 33); h/sig (x, y) each
@@ -182,28 +271,37 @@ def inputs_from_numpy(pk, h, sig, coeff_bits, mask, device=None):
 
 
 def build_device_inputs(sets: list[SignatureSet], size: int | None = None, device=None,
-                        coeff_bits=None):
-    """Host prep + padding: decode/validate/hash N sets and pad to `size`
+                        coeff_bits=None, prep: str | None = None):
+    """Prep + padding: decode, check and hash N sets, padded to `size`
     (default: next power of two >= 8). Returns (pk, h, sig, bits, mask)
     tensors on `device` with fresh blinding bits (or the given
-    `coeff_bits`, (size, 64) MSB first), or None on invalid input."""
+    `coeff_bits`, (size, 64) MSB first), or None on invalid input.
+
+    `prep` overrides the process-wide prep mode for this call: device prep
+    (`ops/prep.py`) where it resolves active, else the host oracle. An
+    error in device prep propagates; it never leads to the oracle."""
     if not sets:
         return None
     dev = resolve_device(device)
     n = len(sets)
     if size is None:
-        size = _pad_pow2(n)
+        size = pad_pow2(n)
     if size < n:
         raise ValueError("pad size smaller than batch")
-    prepared = prepare_sets(sets)
-    if prepared is None:
-        return None
-    (pk_x, pk_y), (h_x, h_y), (sig_x, sig_y) = prepared
     bits, mask = _blinding_and_mask(n, size)
     if coeff_bits is not None:
         bits = np.asarray(coeff_bits, dtype=np.int32)
         if bits.shape != (size, COEFF_BITS):
             raise ValueError(f"coeff_bits must have shape ({size}, {COEFF_BITS})")
+    if device_prep_active(prep, dev):
+        pk, h, sig, ok = _prepare_sets_device_arrays(sets, size, dev)
+        if not ok:
+            return None
+        return pk, h, sig, torch.as_tensor(bits, device=dev), torch.as_tensor(mask, device=dev)
+    prepared = prepare_sets(sets)
+    if prepared is None:
+        return None
+    (pk_x, pk_y), (h_x, h_y), (sig_x, sig_y) = prepared
     return inputs_from_numpy(
         (pad_rows(pk_x, size), pad_rows(pk_y, size)),
         (pad_rows(h_x, size), pad_rows(h_y, size)),
@@ -279,12 +377,14 @@ def make_synthetic_sets(n: int, seed: int = 1) -> list[SignatureSet]:
     return sets
 
 
-def verify_signature_sets_device(sets: list[SignatureSet], device=None) -> bool:
-    """End-to-end batch verify of N signature sets: host prep, then the
-    verification core on `device` (CUDA unless the caller passes another;
-    raises when CUDA is missing)."""
+def verify_signature_sets_device(sets: list[SignatureSet], device=None,
+                                 prep: str | None = None) -> bool:
+    """End-to-end batch verify of N signature sets, compressed bytes in:
+    prep (device prep on CUDA by default; see `build_device_inputs`), then
+    the verification core on `device` (CUDA unless the caller passes
+    another; raises when CUDA is missing)."""
     dev = resolve_device(device)
-    inputs = build_device_inputs(sets, device=dev)
+    inputs = build_device_inputs(sets, device=dev, prep=prep)
     if inputs is None:
         return False
     pk, h, sig, bits, mask = inputs

@@ -3,7 +3,7 @@
 //
 // Replaces (each C entry point below names its Pallas function), and runs as:
 //   lodestar_fp_mul_acc  <- fp_pallas.mul_acc  (_mul_acc_kernel)      mul_acc_kernel
-//   lodestar_fp_sq_acc   <- fp_pallas.sq_acc   (_sq_acc_kernel)       sq_acc_kernel
+//   lodestar_fp_sq_acc   <- fp_pallas.sq_acc   (_sq_acc_kernel)       sq_acc_kernel<PATH, W>
 //   lodestar_fp_redc     <- fp_pallas.redc     (_redc_kernel / _redc_rows)  redc_kernel<PATH, K>
 //   lodestar_fp_mont_mul <- fp_pallas.mont_mul (_mont_mul_kernel)     mont_mul_kernel<PATH, W>
 //   lodestar_fp_mont_sq  <- fp_pallas.mont_sq  (_mont_sq_kernel)      mont_sq_kernel<PATH, W>
@@ -29,14 +29,16 @@
 //                   multiply-adds.
 // But a verify launches mul_acc and redc mostly at 4-6k rows, mont_mul and
 // mont_sq at one row (760 launches each: the Fermat chains, one launch
-// after the other) and at 2,048 rows, where every bound is under a
+// after the other) and at 2,048 rows, sq_acc at one row; input prep
+// launches them at 2-123k rows (its Fp2 square-root chain at 20-31k), and
+// sq_acc at 2,048 and 4,096. Up to ~6k rows every bound is under a
 // microsecond. There the time is the ~2 us floor of a launch plus one
 // block's serial chain, and that chain is set by how many instructions each
-// warp issues and fetches: one thread per row in 128-row blocks (sq_acc)
-// leaves most SMs idle and each thread walks a whole row alone; four warps
-// on four code paths (mul_acc) fetch four times the code, and straight-line
-// code past a few tens of KB is fetch bound, more so the more SMs fetch it
-// at once (PERF.md, PR 3).
+// warp issues and fetches: one thread per row leaves most SMs idle and
+// each thread walks a whole row alone; four warps on four code paths
+// (mul_acc) fetch four times the code, and straight-line code past a few
+// tens of KB is fetch bound, more so the more SMs fetch it at once
+// (PERF.md).
 //
 // mul_acc_kernel: each row over four threads, one per warp of a 128-thread
 //   block: warp q computes columns [kColStart[q], kColStart[q+1]) of its
@@ -45,7 +47,8 @@
 //   registers. The two carry passes need only the carries into a range's
 //   first column, which the range below computes from its own top two
 //   columns; they cross warps through shared memory at one barrier.
-// redc_kernel (up to 5 tiles per SM), mont_mul_kernel, mont_sq_kernel:
+// redc_kernel (up to 5 tiles per SM), mont_mul_kernel, mont_sq_kernel,
+// sq_acc_kernel:
 //   each row over W threads (shares), all threads of a 128-thread block on
 //   ONE code path: a share's part of each step is chosen by offsets
 //   computed from its index q at run time, and every register index stays
@@ -62,7 +65,8 @@
 //   issues fewer instructions per row. mont_mul and mont_sq keep the row's
 //   66-limb accumulator in shared memory and reduce it there: it never
 //   reaches device memory (the point of the fused TPU kernel), and one
-//   launch does what mul_acc + redc do in two.
+//   launch does what mul_acc + redc do in two. sq_acc runs mont_sq's square
+//   and its two carry passes and stores the accumulator.
 // redc_kernel of more than 5 32-row tiles per SM (RedcRanges; past 21,120
 //   rows on an H100 SXM, the verify's 24,588-row launches): mul_acc's four
 //   column ranges, one code path per warp, PR 2's body, which issues fewer
@@ -74,23 +78,17 @@
 //   products, and stored by cp.async.bulk from shared memory. Bytes past
 //   the last 16-byte multiple (the ragged last tile), or every byte when a
 //   pointer is not 16-byte aligned, go through plain loads and stores.
-// A launch of one tile or less (kOneTilePath; redc, mont_mul, mont_sq) is
+// A launch of one tile or less (kOneTilePath; all but mul_acc) is
 //   one block whose rows come in by plain coalesced loads and go out by
 //   plain coalesced stores, without the mbarrier, its fence, the bulk
 //   copies and the tile loop.
-// A mont_mul or mont_sq launch of ONE row (kOneRowPath, mont_row): the tile
-//   paths leave most lanes on rows that do not exist; here all 128 threads
-//   of the block work on the one row, a few products and one column of each
-//   step each. mont_sq runs it as the product a * a (1,089 products, not
-//   the square's 561): the same integers, and at one row the time is the
-//   barriers and the atomics' latency, not the multiply-adds.
-//
-// sq_acc (sq_acc_kernel; 4 launches per verify, all at one row): one
-// thread per row, fully unrolled schoolbook over compile-time limb indices
-// so every limb lives in a register; a block's rows are staged through
-// shared memory with coalesced loads and stores; the row stride in shared
-// memory is odd (33, or 66 padded to 67), so a warp reading one row per
-// thread hits 32 distinct banks; the ragged last block is masked.
+// A mont_mul, mont_sq or sq_acc launch of ONE row (kOneRowPath, mont_row
+//   and sq_row): the tile paths leave most lanes on rows that do not exist;
+//   here all 128 threads of the block work on the one row, a few products
+//   and one column of each step each. The squares run as the product a * a
+//   (1,089 products, not the square's 561): the same integers, and at one
+//   row the time is the barriers and the atomics' latency, not the
+//   multiply-adds.
 
 #include <cuda_runtime.h>
 
@@ -100,9 +98,6 @@ namespace {
 
 constexpr int kL = 33;       // limbs of an element
 constexpr int kA = 2 * kL;   // limbs of an accumulator
-constexpr int kRows = 128;   // rows (one per thread) per block of sq_acc_kernel
-constexpr int kS33 = kL;     // shared-memory row stride of 33-limb rows (odd)
-constexpr int kS66 = kA + 1; // shared-memory row stride of 66-limb rows (odd)
 
 // The carries floor-divide signed limbs by 2^12. C++17 leaves >> of a
 // negative int to the implementation; nvcc and its host compilers shift
@@ -128,85 +123,6 @@ __constant__ int c_two_p[kL] = {
     1366, 4085, 4095, 4095, 1021, 4087, 2047, 1578, 4093, 1407, 2109,
     3780, 3425, 1054, 421,  3302, 1406, 162,  2535, 2416, 2286, 2796,
     1881, 2153, 3948, 884,  1174, 3283, 767,  3399, 547,  832,  0};
-
-// One parallel signed carry pass: every limb keeps its low 12 bits and
-// passes floor(limb / 4096) up one place. KEEP_TOP: the top limb keeps its
-// carry (the value is preserved); otherwise the top carry is dropped (the
-// mod-R truncation of the m-step). carry_in is the carry of the ORIGINAL
-// lower limb, so the pass is the data-parallel one of ops/fp.py.
-template <int N, bool KEEP_TOP>
-__device__ __forceinline__ void carry_once(int (&x)[N]) {
-  int carry_in = 0;
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    const int v = x[i];
-    const bool top_kept = KEEP_TOP && i == N - 1;
-    x[i] = (top_kept ? v : mod_4096(v)) + carry_in;
-    carry_in = floor_div_4096(v);
-  }
-}
-
-// Schoolbook square of one row with a = b: 561 products (each cross term
-// once, doubled), then two carry passes keeping the top limb (fp_pallas
-// _conv_var + _carry2_rows). The integer coefficients equal those of the
-// full 33x33 convolution of a with itself exactly.
-__device__ __forceinline__ void sq_conv_carry(const int (&a)[kL], int (&acc)[kA]) {
-#pragma unroll
-  for (int k = 0; k < kA; ++k) acc[k] = 0;
-#pragma unroll
-  for (int i = 0; i < kL; ++i) {
-    acc[2 * i] += a[i] * a[i];
-    const int a2 = 2 * a[i];
-#pragma unroll
-    for (int j = i + 1; j < kL; ++j) acc[i + j] += a2 * a[j];
-  }
-  carry_once<kA, true>(acc);
-  carry_once<kA, true>(acc);
-}
-
-// Coalesced copy of `rows` contiguous rows of `width` limbs between device
-// memory and shared memory rows of stride `stride`.
-template <int width, int stride>
-__device__ __forceinline__ void stage_in(int* smem, const int* __restrict__ g, int rows) {
-  for (int w = threadIdx.x; w < rows * width; w += kRows) {
-    const int r = w / width;
-    smem[r * stride + (w - r * width)] = g[w];
-  }
-}
-
-template <int width, int stride>
-__device__ __forceinline__ void stage_out(int* __restrict__ g, const int* smem, int rows) {
-  for (int w = threadIdx.x; w < rows * width; w += kRows) {
-    const int r = w / width;
-    g[w] = smem[r * stride + (w - r * width)];
-  }
-}
-
-// sq_acc: one thread per row.
-__global__ void __launch_bounds__(kRows)
-    sq_acc_kernel(const int* __restrict__ a, int* __restrict__ out, int64_t n) {
-  __shared__ int smem[kRows * kS66];
-  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kRows;
-  const int rows = n - row0 < kRows ? static_cast<int>(n - row0) : kRows;
-  const bool active = static_cast<int>(threadIdx.x) < rows;  // ragged last block
-
-  stage_in<kL, kS33>(smem, a + row0 * kL, rows);
-  __syncthreads();
-  int acc[kA];
-  if (active) {
-    int x[kL];
-#pragma unroll
-    for (int i = 0; i < kL; ++i) x[i] = smem[threadIdx.x * kS33 + i];
-    sq_conv_carry(x, acc);
-  }
-  __syncthreads();  // every row is read before the buffer is reused
-  if (active) {
-#pragma unroll
-    for (int i = 0; i < kA; ++i) smem[threadIdx.x * kS66 + i] = acc[i];
-  }
-  __syncthreads();
-  stage_out<kA, kS66>(out + row0 * kA, smem, rows);
-}
 
 // ---------------------------------------------------------------------------
 // Hopper building blocks: bulk asynchronous copies completing on an mbarrier,
@@ -443,8 +359,9 @@ __device__ __forceinline__ void conv_columns(const int* ra, const int* rb, int (
 // are spread over the block's warps Q = 0..3. A pass's carry into a range's
 // first column comes from the range below, which computes both passes'
 // carries out of its top column from its own top two columns: each range
-// publishes those in `carry`, one barrier, and takes its own. KEEP_TOP as
-// in carry_once, for column TOP. W >= 2.
+// publishes those in `carry`, one barrier, and takes its own. KEEP_TOP:
+// column TOP keeps its whole value (the value is preserved); otherwise the
+// carry out of it is dropped (the mod-R truncation of the m-step). W >= 2.
 template <int Q, int S, int W, int TOP, bool KEEP_TOP>
 __device__ __forceinline__ void carry2_range(int2 (&carry)[3][kTileRows], int r, int (&v)[W]) {
   auto low = [](int x, int col) { return KEEP_TOP && col == TOP ? x : mod_4096(x); };
@@ -588,10 +505,10 @@ struct RedcRanges {
 
 
 // ---------------------------------------------------------------------------
-// redc, mont_mul and mont_sq: W threads (shares) per row, all threads of a
-// block on ONE code path. Thread x of a 128-thread block takes share
-// q = x / R of row x % R of its R-row tile (R = 128 / W), through offsets
-// computed from q at run time, while every register index stays a
+// redc, mont_mul, mont_sq and sq_acc: W threads (shares) per row, all
+// threads of a block on ONE code path. Thread x of a 128-thread block takes
+// share q = x / R of row x % R of its R-row tile (R = 128 / W), through
+// offsets computed from q at run time, while every register index stays a
 // compile-time constant: the threads run the same instructions, and q may
 // differ between the lanes of a warp. Warps on separate code paths fetch
 // that many times the code, and a short kernel of straight-line code is
@@ -919,6 +836,61 @@ struct MontMul {
   }
 };
 
+// Two carry passes (the top column keeps its value) of a 66-limb row t over
+// share q's columns [kCW q, kCW q + kCW), stored to the output row out;
+// the columns from 66 up to kCW * W go to `spare`, a word nothing reads (a
+// store address chosen by a select, where a test would be a branch). t is
+// read from t[-2] (zero below column 0) up.
+template <int W>
+__device__ __forceinline__ void carry_out(const int* t, int* out, int* spare, int q) {
+  using S = Split<W>;
+  constexpr int kN = S::kCW + 2;
+  constexpr int kTopShare = (kA - 1) / S::kCW;
+  const int c0 = S::kCW * q - 2;  // the first column read: two of look-back
+  int x[kN];
+#pragma unroll
+  for (int k = 0; k < kN; ++k) x[k] = t[c0 + k];
+  carry_window<2, kA - 1 - (S::kCW * kTopShare - 2)>(x, q == kTopShare);
+#pragma unroll
+  for (int k = 2; k < kN; ++k) {
+    const int c = c0 + k;
+    *(c < kA ? out + c : spare) = x[k];
+  }
+}
+
+// sq_acc: the square's partial sums into the row's columns t in shared
+// memory (square_step, as mont_sq), then the two carry passes that keep
+// the top limb, stored as the 66-limb accumulator: no reduction.
+template <int W>
+struct SqAcc {
+  using S = Split<W>;
+  static constexpr int kOps = 1, kIn = kL, kOut = kA, kRows = S::kRows;
+  static constexpr int kThreads = kShareThreads;
+  static constexpr int kTLead = 2;  // zero columns below column 0: the carries' look-back
+  // the square's atomics reach column 2 (W - 1) + 64, the carries kCW * W - 1
+  static constexpr int kTCols =
+      2 * (W - 1) + 2 * kL - 1 > S::kCW * W ? 2 * (W - 1) + 2 * kL - 1 : S::kCW * W;
+  struct Shared {
+    uint64_t bar[2];
+    alignas(16) int in[2][kRows * kL];
+    alignas(16) int out[kRows * kA];
+    int t[kRows][odd(kTLead + kTCols)];  // the square's columns, zero between tiles
+    int spare;
+  };
+
+  __device__ static void init(Shared& sh) { zero_words(&sh.t[0][0], sizeof(sh.t) / 4); }
+
+  __device__ static void columns(Shared& sh, int stage, int q, int r) {
+    int* t = sh.t[r] + kTLead;
+    square_step<W>(sh.in[stage] + r * kL, t, q);
+    __syncthreads();
+    carry_out<W>(t, sh.out + r * kA, &sh.spare, q);
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < S::kCW; ++k) t[S::kCW * q + k] = 0;  // every read of t is done
+  }
+};
+
 // ---------------------------------------------------------------------------
 // mont_mul and mont_sq of ONE row, the Fermat chains' launches (760 of each
 // per 2048-set verify, one after the other): there the tile paths leave 30
@@ -934,6 +906,35 @@ struct MontMul {
 constexpr int kRowThreads = 128;  // four warps: 4 x 8 slots + limb 32
 static_assert(kRowThreads == kShareThreads, "the kernels' launch bounds");
 
+// Thread (warp q, lane l) of a one-row launch's kRowThreads threads: its
+// part of the product a * b, operand limb a_l (and a_32 on lane 0) against
+// the slots b_j, j = 8q + s (s < 8, and s = 8, limb 32, on warp 3). The
+// operands load on construction, so the loads are in flight while the
+// caller zeroes its rows; add_to adds the 18 products into the columns of
+// t (up to column 95) by shared-memory atomic adds.
+struct RowProduct {
+  int q, lane, a_lo, a_hi, bj[9];
+
+  __device__ __forceinline__ RowProduct(const int* __restrict__ a, const int* __restrict__ b)
+      : q(static_cast<int>(threadIdx.x) >> 5), lane(static_cast<int>(threadIdx.x) & 31) {
+    a_lo = a[lane];
+    a_hi = lane == 0 ? a[lane == 0 ? 32 : 0] : 0;  // limb 32 on lane 0
+#pragma unroll
+    for (int s = 0; s < 9; ++s) {
+      const int v = b[8 * q + s];
+      bj[s] = s < 8 || q == 3 ? v : 0;
+    }
+  }
+
+  __device__ __forceinline__ void add_to(int* t) const {
+#pragma unroll
+    for (int s = 0; s < 9; ++s) {
+      atomicAdd(&t[lane + 8 * q + s], a_lo * bj[s]);
+      atomicAdd(&t[lane + 32 + 8 * q + s], a_hi * bj[s]);
+    }
+  }
+};
+
 __device__ __forceinline__ void mont_row(const int* __restrict__ a, const int* __restrict__ b,
                                          int* __restrict__ out) {
   // Every array is as wide as any thread reads or adds to (up to column
@@ -944,14 +945,7 @@ __device__ __forceinline__ void mont_row(const int* __restrict__ a, const int* _
   int* t = t_ + 3;
   int* m = m_ + 2;
   const int tid = threadIdx.x, q = tid >> 5, lane = tid & 31;
-  const int a_lo = a[lane];
-  const int a_hi = lane == 0 ? a[lane == 0 ? 32 : 0] : 0;  // limb 32 on lane 0
-  int bj[9];
-#pragma unroll
-  for (int s = 0; s < 9; ++s) {
-    const int v = b[8 * q + s];
-    bj[s] = s < 8 || q == 3 ? v : 0;
-  }
+  const RowProduct prod(a, b);
   t_[tid] = 0;
   m_[tid] = 0;
   if (tid < 3) {
@@ -959,13 +953,7 @@ __device__ __forceinline__ void mont_row(const int* __restrict__ a, const int* _
     m_[kW + tid] = 0;
   }
   __syncthreads();
-
-  // t = a * b
-#pragma unroll
-  for (int s = 0; s < 9; ++s) {
-    atomicAdd(&t[lane + 8 * q + s], a_lo * bj[s]);
-    atomicAdd(&t[lane + 32 + 8 * q + s], a_hi * bj[s]);
-  }
+  prod.add_to(t);  // t = a * b
   __syncthreads();
 
   // u = t after three carry passes (the top column keeps its value) + 2Rp
@@ -1029,6 +1017,26 @@ __device__ __forceinline__ void mont_row(const int* __restrict__ a, const int* _
   }
 }
 
+// sq_acc of ONE row: all kRowThreads threads on the row, the square as the
+// product a * a (RowProduct, as mont_row; 1,089 products, the same
+// integers), then the two carry passes, one column a thread. Two barriers.
+__device__ __forceinline__ void sq_row(const int* __restrict__ a, int* __restrict__ out) {
+  constexpr int kW = kRowThreads;
+  __shared__ int t_[2 + kW];  // two zero columns below column 0, up to column 127
+  int* t = t_ + 2;
+  const int tid = threadIdx.x;
+  const RowProduct prod(a, a);
+  t_[tid] = 0;
+  if (tid < 2) t_[kW + tid] = 0;
+  __syncthreads();
+  prod.add_to(t);  // t = a * a
+  __syncthreads();
+  const int c = tid;
+  int x[3] = {t[c - 2], t[c - 1], t[c]};
+  carry_window<2, 2>(x, c == kA - 1);  // column 65 keeps its value
+  if (c < kA) out[c] = x[2];
+}
+
 __global__ void __launch_bounds__(MulAcc::kThreads)
     mul_acc_kernel(const int* __restrict__ a, const int* __restrict__ b,
                    int* __restrict__ out, int64_t n) {
@@ -1071,6 +1079,22 @@ __global__ void __launch_bounds__(kShareThreads)
   using K = MontMul<true, W>;
   if constexpr (PATH == kOneRowPath) {
     mont_row(a, a, out);  // one row: the square as a product (the same integers)
+  } else {
+    __shared__ typename K::Shared sh;
+    if constexpr (PATH == kOneTilePath) {
+      one_tile<K>(a, a, out, static_cast<int>(n), sh);
+    } else {
+      stream_tiles<K>(a, a, out, n, sh);
+    }
+  }
+}
+
+template <int PATH, int W>
+__global__ void __launch_bounds__(kShareThreads)
+    sq_acc_kernel(const int* __restrict__ a, int* __restrict__ out, int64_t n) {
+  using K = SqAcc<W>;
+  if constexpr (PATH == kOneRowPath) {
+    sq_row(a, out);
   } else {
     __shared__ typename K::Shared sh;
     if constexpr (PATH == kOneTilePath) {
@@ -1145,8 +1169,18 @@ int lodestar_fp_mul_acc(const int* a, const int* b, int* out, int64_t n, void* s
 }
 
 int lodestar_fp_sq_acc(const int* a, int* out, int64_t n, void* stream) {
-  const unsigned blocks = static_cast<unsigned>((n + kRows - 1) / kRows);
-  sq_acc_kernel<<<blocks, kRows, 0, static_cast<cudaStream_t>(stream)>>>(a, out, n);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n == 1) {
+    sq_acc_kernel<kOneRowPath, 8><<<1, kRowThreads, 0, s>>>(a, out, n);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (shares_for(n) == 8) {
+    launch_tiles<SqAcc<8>, sq_acc_kernel<kOneTilePath, 8>, sq_acc_kernel<kTileLoop, 8>>(
+        n, s, a, out);
+  } else {
+    launch_tiles<SqAcc<4>, sq_acc_kernel<kOneTilePath, 4>, sq_acc_kernel<kTileLoop, 4>>(
+        n, s, a, out);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

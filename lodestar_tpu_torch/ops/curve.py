@@ -13,9 +13,10 @@ Exceptional cases come in two flavours:
   collisions are unreachable there: the running accumulator is k*Q for a
   k that is never +-1 mod ord(Q) (blinding scalars and |x|-prefixes are
   < 2^65 << r, and inputs are subgroup-checked).
-* exact (`jac_add`, default): value-level zero tests (`is_zero_mod`) drive
-  the P == Q / P == -Q selects, and a detected cancellation gives the
-  exact-zero infinity form (aggregate folds).
+* exact (`jac_add`, default, and `scalar_mul_const`): value-level zero
+  tests (`is_zero_mod`) drive the P == Q / P == -Q selects, and a
+  detected cancellation gives the exact-zero infinity form (aggregate
+  folds, subgroup checks, cofactor clearing).
 """
 
 from __future__ import annotations
@@ -32,8 +33,11 @@ __all__ = [
     "jac_add_mixed",
     "jac_add",
     "jac_is_inf",
+    "jac_is_inf_val",
+    "jac_neg",
     "jac_to_affine_batch",
     "scalar_mul_var",
+    "scalar_mul_const",
     "affine_to_jac",
     "fold_sum",
 ]
@@ -88,6 +92,16 @@ def _dbl(F, x):
 def jac_is_inf(F, pt):
     """Exact-zero infinity test (the maintained encoding)."""
     return F.is_zero(pt[2])
+
+
+def jac_is_inf_val(F, pt):
+    """Value-level infinity test (Z == 0 mod p), for boundary predicates
+    where a cancellation may have left a relaxed zero."""
+    return F.is_zero_mod(pt[2])
+
+
+def jac_neg(F, pt):
+    return (pt[0], F.neg(pt[1]), pt[2])
 
 
 def affine_to_jac(F, xy, one):
@@ -205,6 +219,22 @@ def scalar_mul_var(F, q_aff, bit_matrix, one, exact: bool = False):
         acc = jac_double(F, acc)
         added = jac_add_mixed(F, acc, q_aff, one, exact=exact)
         acc = _where_pt(bit_matrix[..., j] != 0, added, acc)
+    return acc
+
+
+def scalar_mul_const(F, q_aff, scalar: int, one):
+    """[scalar]Q for one static scalar (subgroup checks): double every
+    bit, and add Q with the exact addition where the bit is set (a Python
+    `if` on the static bit, the JAX package's `lax.cond`). The exact
+    addition is needed: a multiple of the group order walks through
+    -Q + Q, and inputs off the subgroup may have small order."""
+    acc = _zero_pt_like(q_aff[0])
+    if scalar == 0:
+        return acc
+    for bit in bin(scalar)[2:]:
+        acc = jac_double(F, acc)
+        if bit == "1":
+            acc = jac_add_mixed(F, acc, q_aff, one, exact=True)
     return acc
 
 

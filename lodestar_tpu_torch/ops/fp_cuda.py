@@ -5,16 +5,17 @@ points (`mul_acc`, `sq_acc`, `redc`, `mont_mul`, `mont_sq`), bit-identical
 to the plain versions ``fp.plain_*``. The kernels are hand-written CUDA
 C++ for Hopper (``csrc/fp_kernels.cu``, ``sm_90a``): `mul_acc` gives each
 row four threads, one column range each; `redc`, `mont_mul` and
-`mont_sq` give each row eight threads (16-row tiles) up to 16 rows per SM,
-else four (32-row tiles), all threads of a block on one code path, their
-shares meeting by shared-memory atomic adds (a `redc` launch of more than
-five 32-row tiles per SM runs `mul_acc`'s split instead); all four stream
-their tiles through bulk asynchronous copies in persistent blocks. `mont_mul` and
-`mont_sq` keep each row's 66-limb product in shared memory and reduce it
-there. A launch of one tile or less takes a one-block path with plain
-loads and stores, and a `mont_mul` or `mont_sq` launch of one row (the
-Fermat chains) a path that puts all 128 threads of a block on that row.
-`sq_acc` runs one thread per row. See the source for what bounds each
+`mont_sq` and `sq_acc` give each row eight threads (16-row tiles) up to 16
+rows per SM, else four (32-row tiles), all threads of a block on one code
+path, their shares meeting by shared-memory atomic adds (a `redc` launch
+of more than five 32-row tiles per SM runs `mul_acc`'s split instead); all
+five stream their tiles through bulk asynchronous copies in persistent
+blocks. `mont_mul` and `mont_sq` keep each row's 66-limb product in shared
+memory and reduce it there; `sq_acc` carries it there and stores it. A
+launch of one tile or less takes a one-block path with plain loads and
+stores, and a `mont_mul`, `mont_sq` or `sq_acc` launch of one row (the
+Fermat chains, the norms of one-element inversions) a path that puts all
+128 threads of a block on that row. See the source for what bounds each
 kernel on an H100.
 
 Each wrapper launches its kernel and raises if the build or the launch

@@ -121,3 +121,44 @@ class TestFoldSum:
         got = cv.fold_sum(cv.F2, t(X, Y, Z))
         same_as_jax(got, jcv.fold_sum(jcv.F2, (X, Y, Z)))
         assert bool(cv.jac_is_inf(cv.F2, got))
+
+
+class TestScalarMulConst:
+    """One static scalar for the whole batch (the subgroup checks of input
+    prep), with the exact addition at every set bit."""
+
+    def test_g1(self):
+        pts = [C.g1_mul(G1_GEN, k) for k in (3, 5, 7, 11)]
+        q = g1_limbs(pts)
+        one = fp.ONE_MONT_LIMBS
+        for k in (0, 1, 45):
+            got = cv.scalar_mul_const(cv.F1, t(*q), k, torch.from_numpy(one))
+            same_as_jax(got, jcv.scalar_mul_const(jcv.F1, q, k, one))
+            aff = cv.jac_to_affine_batch(cv.F1, got)
+            want = [C.g1_mul(p, k) if k else None for p in pts]
+            assert g1_affine_values(aff, cv.jac_is_inf(cv.F1, got)) == want
+
+    def test_g2_through_a_cancellation(self):
+        # [r]Q walks through -Q + Q at its last addition: exact infinity
+        pts = [C.g2_mul(G2_GEN, k) for k in (13, 29)]
+        q = g2_limbs(pts)
+        one2 = tw.fp2_one()
+        for k in (45, C.R):
+            got = cv.scalar_mul_const(cv.F2, t(*q), k, one2)
+            same_as_jax(got, jcv.scalar_mul_const(jcv.F2, q, k, one2.numpy()))
+            inf = cv.jac_is_inf(cv.F2, got)
+            assert inf.tolist() == [k == C.R] * 2
+            assert cv.jac_is_inf_val(cv.F2, got).tolist() == inf.tolist()
+
+
+def test_jac_neg_and_value_infinity():
+    pts = [C.g1_mul(G1_GEN, k) for k in (3, 5)]
+    x, y = g1_limbs(pts)
+    z = np.stack([fp.ONE_MONT_LIMBS, fp.P_LIMBS])  # p: a relaxed zero, not exact zero
+    pt = t(x, y, z)
+    neg = cv.jac_neg(cv.F1, pt)
+    same_as_jax(neg, jcv.jac_neg(jcv.F1, (x, y, z)))
+    assert torch.equal(neg[0], pt[0]) and torch.equal(neg[2], pt[2])
+    assert cv.jac_is_inf(cv.F1, pt).tolist() == [False, False]
+    assert cv.jac_is_inf_val(cv.F1, pt).tolist() == [False, True]
+    assert np.asarray(jcv.jac_is_inf_val(jcv.F1, (x, y, z))).tolist() == [False, True]

@@ -72,6 +72,40 @@ def test_kernel_matches_plain_on_card(name, cuda_device):
             assert not got[1::13].any()
 
 
+# The row counts a 2048-set input prep launches the kernels at beyond
+# ROW_COUNTS: 4, 6, 10, 15, 40 and 60 rows a set (its Fp2 square-root
+# chain runs at 10 and 15).
+PREP_ROW_COUNTS = (8192, 12288, 20480, 30720, 81920, 122880)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", fp_cuda.KERNELS)
+def test_kernel_matches_plain_at_prep_row_counts(name, cuda_device):
+    rng = np.random.default_rng(10)
+    for n in PREP_ROW_COUNTS:
+        args = kernel_args(name, n, rng, cuda_device)
+        got = getattr(fp_cuda, name)(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, getattr(fp, f"plain_{name}")(*args)), f"{name} at n={n}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 16, 17, 32, 33, 2048, 2112, 2113, 4096])
+def test_sq_acc_paths_at_their_edges(n, cuda_device):
+    """sq_acc's one-row path (n = 1), one-tile path (up to 16 rows at eight
+    shares a row), tile loop at eight shares (up to 2,112 rows on an H100
+    SXM) and at four, with worst-case and exact-zero rows."""
+    rng = np.random.default_rng(11)
+    a = relaxed_rows(n, rng, cuda_device)
+    a[1::4] = 0
+    a[3::4] = -fp.LIMB_LOOSE
+    got = fp_cuda.sq_acc(a)
+    torch.cuda.synchronize()
+    assert got.shape == (n, 2 * fp.LIMBS)
+    assert torch.equal(got, fp.plain_sq_acc(a))
+    assert not got[1::4].any()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", fp_cuda.KERNELS)
 def test_kernel_matches_plain_on_unaligned_rows(name, cuda_device):
@@ -136,3 +170,17 @@ def test_batch_verify_on_card(cuda_device):
     bad = list(sets)
     bad[0] = dataclasses.replace(sets[0], signature=sets[1].signature)
     assert bv.verify_signature_sets_device(bad) is False
+
+
+@pytest.mark.cuda
+def test_device_prep_on_card_matches_the_cpu(cuda_device):
+    """Input prep of four sets on the card (every product through the
+    kernels) gives the limbs of the plain versions on the CPU."""
+    from lodestar_tpu_torch.models import batch_verify as bv
+
+    sets = bv.make_synthetic_sets(4, seed=5)
+    on_card = bv.prepare_sets_device(sets, device=cuda_device)
+    on_cpu = bv.prepare_sets_device(sets, device="cpu")
+    for card_pt, cpu_pt in zip(on_card, on_cpu):
+        for c_card, c_cpu in zip(card_pt, cpu_pt):
+            assert torch.equal(c_card.cpu(), c_cpu)

@@ -1,6 +1,6 @@
-"""The split of one row over threads in `redc_kernel`, `mont_mul_kernel`
-and `mont_sq_kernel` (ops/csrc/fp_kernels.cu), modelled in numpy on the
-CPU.
+"""The split of one row over threads in `redc_kernel`, `mont_mul_kernel`,
+`mont_sq_kernel` and `sq_acc_kernel` (ops/csrc/fp_kernels.cu), modelled in
+numpy on the CPU.
 
 Each row of a tile has W threads (shares), all running the same code on
 their own share of each step, chosen by the share's index q: the square
@@ -16,9 +16,11 @@ Checked on worst-case loose limbs (+-LIMB_LOOSE, alternating, in blocks),
 random rows and exact-zero rows: the square's rows partition its triangle
 (561 products), the summed shares equal `fp._conv_var` column by column,
 the windowed carries equal the plain carry passes, the whole model equals
-`fp.plain_mont_sq`, `fp.plain_mont_mul` and `fp.plain_redc` limb for limb,
-and no partial sum reaches 2^30 whatever order the atomic adds take (the
-int32 ledger of ops/fp.py), so the kernels' int32 sums are these integers.
+`fp.plain_mont_sq`, `fp.plain_mont_mul`, `fp.plain_redc` and
+`fp.plain_sq_acc` limb for limb, and no partial sum reaches 2^30 whatever
+order the atomic adds take (the int32 ledger of ops/fp.py), so the kernels'
+int32 sums are these integers. `sq_acc`'s one-row path (all 128 threads of
+a block on one row, as `mont_row`) is modelled too.
 
 Tolerance: none (exact integers).
 """
@@ -223,4 +225,48 @@ def test_shared_model_equals_the_plain_version(name, w):
         want = fp.plain_redc(torch.from_numpy(t))
     assert np.array_equal(got, want.numpy())
     assert not got[4].any()  # exact zero stays exact zero
+    assert ledger.largest < LIMIT
+
+
+@pytest.mark.parametrize("w", SHARES)
+def test_sq_acc_shares_equal_the_plain_version(w):
+    """sq_acc's tile paths: the square's shares, then two windowed carry
+    passes keeping the top limb, stored without a reduction."""
+    a = worst_rows()
+    ledger = Ledger()
+    t = shares_into(a.shape[0], A + 2 * w, square_shares(a, w, ledger), ledger)
+    assert not t[:, A:].any()  # the spare columns the carry windows read are zero
+    got = windowed_carries(t[:, :A], 2, -(-A // w), True, w)
+    want = fp.plain_sq_acc(torch.from_numpy(a.astype(np.int32)))
+    assert np.array_equal(got, want.numpy())
+    assert not got[4].any()  # exact zero stays exact zero
+    assert ledger.largest < LIMIT
+
+
+def one_row_product_shares(a, b, ledger):
+    """The one-row split of `mont_row` and `sq_row`, 128 threads on one row:
+    thread (warp q, lane l) adds a_l * b_j into column l + j for its slots
+    j = 8q + s (s < 8, and s = 8, limb 32, on warp 3), and lane 0 adds
+    a_32 * b_j into column 32 + j."""
+    for q in range(4):
+        slots = [8 * q + s for s in range(9) if s < 8 or q == 3]
+        for lane in range(32):
+            for j in slots:
+                p = a[:, lane] * b[:, j]
+                ledger.see(p)
+                yield lane + j, p[:, None]
+                if lane == 0:
+                    yield 32 + j, (a[:, 32] * b[:, j])[:, None]
+
+
+def test_sq_acc_one_row_split_equals_the_plain_version():
+    a = worst_rows()
+    ledger = Ledger()
+    t = shares_into(a.shape[0], 128, one_row_product_shares(a, a, ledger), ledger)
+    assert np.array_equal(t[:, :A], fp._conv_var(torch.from_numpy(a), torch.from_numpy(a)).numpy())
+    assert not t[:, A:].any()
+    # one column a thread, each reading the two columns below it
+    got = windowed_carries(t[:, :A], 2, 1, True, A)
+    want = fp.plain_sq_acc(torch.from_numpy(a.astype(np.int32)))
+    assert np.array_equal(got, want.numpy())
     assert ledger.largest < LIMIT
