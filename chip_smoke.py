@@ -21,7 +21,8 @@ Phases, in order; any failure exits non-zero and prints no result:
             not in it), each time beside its bound.
 4. main     the port's main path through its entry points, compressed bytes
             in and verdict out, with device input prep (ops/prep.py) on the
-            card: 128 synthetic sets (bench.py's seed 17) verify True, two
+            card, through the split schedule (single launch switched off
+            for this phase): 128 synthetic sets (bench.py's seed 17) verify True, two
             swapped signatures verify False, and a batch with one pubkey
             off the curve and one signature off the G2 subgroup verifies
             False through prep's own ok bits. Then 16 copies of the 128
@@ -47,16 +48,35 @@ Phases, in order; any failure exits non-zero and prints no result:
             `torch.profiler` for the card's busy time (per prep stage
             too), its idle share of the unprofiled wall time, and the
             device time per kernel.
-6. check    a Miller loop + final exponentiation of two pairs on the card
+6. single   the single-launch path, the default on the card: compressed
+            bytes in, one counted dispatch per batch, one CUDA-graph
+            replay per size class (`graphs.py`). Kernel launch counts and
+            graph replays are reset just before it and read just after;
+            every kernel must have been launched by a replay. 128 sets
+            valid (True), swapped (False), invalid points (False, and the
+            replay's batch_valid False), valid again, all on one captured
+            graph; then the 2048 merged sets (1 warm-up with the capture,
+            3 timed): capture and instantiate s, the graph's node count
+            (`cuGraphGetNodes`), its pool's reserved memory, bytes-to-
+            verdict s and sigs/s beside the split schedule's of phase 4,
+            the host byte stage alone, copy in + replay + verdict read, one
+            profiled replay (device busy ms, idle share of the unprofiled
+            replay), Fp launches per replay (counted at capture); the
+            replay's (verdict, batch_valid) equals the eager body's and the
+            split schedule's verdict on the same inputs and bits. Then
+            `device_batch_verify_many` on the merged batch as 16 jobs of
+            128 (every job True; one tampered job False), eagerly, at row
+            counts phase 3 checked.
+7. check    a Miller loop + final exponentiation of two pairs on the card
             equals the CPU path (the plain versions) limb for limb, and
             equals e(P, Q) from the host pairing check on canonical values.
-7. report   one JSON line of kernels, the `nvidia-smi` line, and the last
+8. report   one JSON line of kernels, the `nvidia-smi` line, and the last
             line {"ok": true, "device": {...}}.
 
 With `--compare-parent DIR` (a checkout of an earlier commit, for example
 unpacked with `git archive` into a directory that .gitignore lists),
 phase 2 also builds DIR's kernel source, beside this one's, and a step
-between phases 6 and 7 checks each of its kernels against the plain
+between phases 7 and 8 checks each of its kernels against the plain
 version and times it beside this source's, in turns (parent, this, this,
 parent), at the row counts of N_TIMED and of one merged verify, each
 with its ms per verify.
@@ -83,12 +103,18 @@ import time
 # (eight a row up to 16 rows per SM: 2112 on an H100 SXM), the two sides of
 # redc's switch to its column-range body (past five 32-row tiles per SM:
 # 21120), and 110646, the row count the first kernel table was measured at.
-# Phase 4 fails if a prep launches a kernel at a row count not checked here.
+# Phase 4 fails if a prep launches a kernel at a row count not checked here,
+# and phase 6 if `device_batch_verify_many` of 16 jobs of 128 sets does
+# (MANY_ROWS: its scalar muls on 2048 rows, its Miller loop on 16 x 129
+# pairs, its folds and 16 final exponentiations).
 PREP_ROWS = (2048, 4096, 6144, 8192, 12288, 20480, 30720, 81920, 122880)
+MANY_ROWS = (16, 32, 48, 64, 96, 128, 144, 192, 256, 288, 384, 512, 576, 768, 864, 1024, 1536,
+             1728, 2048, 3072, 3456, 4096, 4128, 6144, 6192, 6912, 12288, 13824, 24576, 24768,
+             27648, 37152, 49536, 55296, 74304, 110592)
 N_TIMED = (1, 12, 36, 2048, 4096, 6147, 20480, 21120, 21121, 24588, 30720, 73764, 110646,
            122880)
-N_KERNEL_CHECK = tuple(sorted({*N_TIMED, *PREP_ROWS, 2, 15, 16, 17, 31, 32, 33, 63, 64, 65,
-                               511, 512, 513, 2049, 2112, 2113, 4098}))
+N_KERNEL_CHECK = tuple(sorted({*N_TIMED, *PREP_ROWS, *MANY_ROWS, 2, 15, 16, 17, 31, 32, 33, 63,
+                               64, 65, 511, 512, 513, 2049, 2112, 2113, 4098}))
 N_COMPARE = 110646
 BATCH = 128  # sets per gossip job
 MERGE_JOBS = 16  # jobs merged into one RLC batch
@@ -384,9 +410,14 @@ def main_path(dev, smi):
     tampered[0] = dataclasses.replace(sets[0], signature=sets[1].signature)
     tampered[1] = dataclasses.replace(sets[1], signature=sets[0].signature)
     bad = invalid_batch(sets)
+    bad_full = list(sets)  # the same two invalid points in a batch of BATCH sets
+    bad_full[2], bad_full[5] = bad[2], bad[5]
     merged = BATCH * MERGE_JOBS
     merged_sets = sets * MERGE_JOBS  # bench.py's merge: 16 copies of the job's bytes
 
+    if not bv.single_launch_active(device=dev):
+        fail("single launch is not the default on the card")
+    bv.configure_single_launch("off")  # this phase drives the split schedule
     fp_cuda.reset_launches()  # the main path's run starts here
     if not bv.device_prep_active(device=dev):
         fail("device prep is not the default on the card")
@@ -497,6 +528,7 @@ def main_path(dev, smi):
         "oracle_s_per_128": oracle_s,
         "merged_inputs": (pk_m, h_m, sig_m, mask_m, fresh_bits),
         "merged_sets": merged_sets,
+        "batches": {"valid": sets, "swapped": tampered, "invalid": bad_full},
     }
 
 
@@ -752,6 +784,189 @@ def prep_stage_busy(events, stages, smi):
             f"on {smi}")
 
 
+# --- phase 6 -----------------------------------------------------------------
+
+
+def single_launch(dev, smi, main):
+    """Phase 6: the single-launch path, the default on the card: compressed
+    bytes in, one counted dispatch, one CUDA-graph replay per batch.
+    Returns its figures and counts."""
+    import torch
+
+    from lodestar_tpu_torch import graphs
+    from lodestar_tpu_torch.models import batch_verify as bv
+    from lodestar_tpu_torch.ops import fp_cuda
+    from lodestar_tpu_torch.ops import prep as dp
+
+    bv.configure_single_launch("auto")
+    if not bv.single_launch_active(device=dev):
+        fail("single launch is not the default on the card")
+    cache = bv._SINGLE_LAUNCH_GRAPHS
+    merged_sets = main["merged_sets"]
+    merged = len(merged_sets)
+
+    def verify(label, batch, want):
+        """One entry-point batch on the card: its verdict, one dispatch."""
+        base = dp.prep_launches_total()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = bv.verify_signature_sets_device(batch)
+        t = time.perf_counter() - t0
+        if got is not want:
+            fail(f"single launch: the {label} batch verified {got}, not {want}")
+        if dp.prep_launches_total() - base != dp.SINGLE_LAUNCH_BUDGET:
+            fail(f"single launch: the {label} batch made {dp.prep_launches_total() - base} "
+                 f"dispatches, not {dp.SINGLE_LAUNCH_BUDGET}")
+        return t
+
+    fp_cuda.reset_launches()
+    graphs.reset_replayed()  # the single-launch path's run starts here
+    order = (("valid", True), ("swapped", False), ("invalid", False), ("valid", True))
+    for i, (label, want) in enumerate(order):
+        t = verify(label, main["batches"][label], want)
+        say(f"single: {BATCH}-set {label} batch verifies {want} in one dispatch ({t:.2f} s"
+            f"{', warm-up and capture included' if i == 0 else ''})")
+    g_small = cache.graphs.get((dev.index, BATCH))
+    if g_small is None or g_small.replays != len(order):
+        fail(f"single launch: the {BATCH}-set batches did not replay one captured graph")
+    si = bv.prepare_single_launch_inputs(main["batches"]["invalid"])
+    verdict, batch_valid = cache(dev, *si.arrays, si.bits, si.mask)
+    if bool(verdict) or bool(batch_valid):
+        fail("single launch: the invalid-point batch's batch_valid is not False")
+    say(f"single: the invalid-point batch's replay gives batch_valid False (prep's ok bits "
+        f"folded on the device); {BATCH}-set graph: {g_small.nodes} nodes, capture "
+        f"{g_small.capture_s:.2f} s, instantiate {g_small.instantiate_s:.2f} s")
+
+    t0 = time.perf_counter()
+    if bv.verify_sets_single_launch(merged_sets) is not True:
+        fail(f"single launch: the {merged}-set merged batch did not verify (warm-up)")
+    first_s = time.perf_counter() - t0
+    g = cache.graphs[(dev.index, merged)]
+    say(f"single: {merged}-set graph: first batch {first_s:.2f} s (eager warm-up, capture "
+        f"{g.capture_s:.2f} s, instantiate {g.instantiate_s:.2f} s, one replay); {g.nodes} "
+        f"nodes; pool {g.pool_bytes / 2**20:.1f} MiB reserved; Fp launches per replay "
+        f"{g.launches} on {smi}")
+    times = []
+    for i in range(TIMED_RUNS):
+        base = dp.prep_launches_total()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ok = bv.verify_sets_single_launch(merged_sets)  # fresh bits each time
+        times.append(time.perf_counter() - t0)
+        if ok is not True or dp.prep_launches_total() - base != dp.SINGLE_LAUNCH_BUDGET:
+            fail(f"single launch: timed merged batch {i} gave {ok} in "
+                 f"{dp.prep_launches_total() - base} dispatches")
+    replayed = dict(graphs.REPLAYED)  # the single-launch path's run ends here
+    missing = [k for k in fp_cuda.KERNELS if replayed[k] <= 0]
+    if missing:
+        fail(f"kernels never launched by a single-launch replay: {missing}")
+    if g.replays != 1 + TIMED_RUNS:
+        fail(f"single launch: {g.replays} replays of the {merged}-set graph, not {1 + TIMED_RUNS}")
+    mean = sum(times) / len(times)
+    split_s = main["prep_s"] + merged / main["sigs_per_s"]
+    say(f"single: {merged}-set merged batch x{TIMED_RUNS}, bytes to verdict: "
+        f"{', '.join(f'{t:.3f}' for t in times)} s; {merged / mean:.1f} sigs/s against the split "
+        f"schedule's {split_s:.3f} s, {merged / split_s:.1f} sigs/s in this call, on {smi}")
+    say(f"single: Fp launches replayed over the path {replayed}")
+
+    # the parts of one batch: the host byte stage, then copy in + replay + read
+    host, replay = [], []
+    for _ in range(TIMED_RUNS):
+        t0 = time.perf_counter()
+        si = bv.prepare_single_launch_inputs(merged_sets)
+        host.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        verdict, batch_valid = cache(dev, *si.arrays, si.bits, si.mask)
+        replay.append(time.perf_counter() - t0)
+        if not (bool(verdict) and bool(batch_valid)):
+            fail("single launch: a replay of the merged batch did not verify")
+    host_s, replay_s = sum(host) / len(host), sum(replay) / len(replay)
+    say(f"single: host byte stage x{TIMED_RUNS}: {', '.join(f'{t:.3f}' for t in host)} s; "
+        f"copy in + replay + verdict read x{TIMED_RUNS}: {', '.join(f'{t:.3f}' for t in replay)} "
+        f"s on {smi}")
+    (verdict, _), prof_wall, events = profiled(lambda: cache(dev, *si.arrays, si.bits, si.mask))
+    if not bool(verdict):
+        fail("single launch: the profiled replay did not verify")
+    busy = busy_ms(events)
+    kernels = len(device_events(events))
+    if busy == 0:
+        say("single: replay device busy time: not measured (the trace holds no device events)")
+        idle = None
+    else:
+        idle = 1 - busy / (replay_s * 1e3)
+        say(f"single: profiled replay {prof_wall:.1f} ms wall, {kernels} device events; device "
+            f"busy {busy:.1f} ms, idle {100 * idle:.1f}% of the unprofiled {replay_s * 1e3:.1f} "
+            f"ms replay on {smi}")
+
+    # replay == the eager body == the split schedule, on the same inputs and bits
+    si = bv.prepare_single_launch_inputs(merged_sets)
+    replayed_out = tuple(bool(t) for t in cache(dev, *si.arrays, si.bits, si.mask))
+    eager = tuple(bool(t) for t in bv._single_launch_verify(
+        *(torch.as_tensor(a, device=dev) for a in (*si.arrays, si.bits, si.mask))))
+    inputs = bv.build_device_inputs(merged_sets, size=merged, coeff_bits=si.bits, prep="on")
+    split = inputs is not None and bool(bv.device_batch_verify(*inputs))
+    if not replayed_out == eager == (True, True) or split is not True:
+        fail(f"single launch: replay {replayed_out}, eager body {eager} and split schedule "
+             f"{split} disagree on the merged batch")
+    say(f"single: {merged}-set replay == eager body == split schedule on the same inputs and "
+        "bits: (verdict, batch_valid) = (True, True)")
+    return {
+        "graph": g,
+        "replayed": replayed,
+        "bytes_to_verdict_s": mean,
+        "sigs_per_s": merged / mean,
+        "host_s": host_s,
+        "replay_s": replay_s,
+        "busy_ms": busy if busy else None,
+        "idle": idle,
+        "device_events": kernels,
+    }
+
+
+def verify_many(dev, smi, main):
+    """`device_batch_verify_many` on the merged batch as 16 jobs of 128 sets
+    (bench.py's shape), eagerly: every job True, then one job tampered.
+    Fails on a kernel row count phase 3 did not check."""
+    import numpy as np
+    import torch
+
+    from lodestar_tpu_torch.models import batch_verify as bv
+
+    pk, h, sig, mask, _ = main["merged_inputs"]
+
+    def jobs(pt):
+        return tuple(c.reshape(MERGE_JOBS, BATCH, *c.shape[1:]) for c in pt)
+
+    def bits():
+        return torch.as_tensor(np.stack([bv._blinding_and_mask(BATCH, BATCH)[0]
+                                         for _ in range(MERGE_JOBS)]), device=dev)
+
+    job_mask = mask.reshape(MERGE_JOBS, BATCH)
+    before = rows_snapshot()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = bv.device_batch_verify_many(jobs(pk), jobs(h), jobs(sig), bits(), job_mask).tolist()
+    t = time.perf_counter() - t0
+    rows = rows_since(before)
+    if got != [True] * MERGE_JOBS:
+        fail(f"device_batch_verify_many: valid jobs gave {got}")
+    bad = tuple(c.clone() for c in jobs(sig))
+    for c in bad:
+        c[-1, [0, 1]] = c[-1, [1, 0]]  # the last job: two swapped signatures
+    got = bv.device_batch_verify_many(jobs(pk), jobs(h), bad, bits(), job_mask).tolist()
+    if got != [True] * (MERGE_JOBS - 1) + [False]:
+        fail(f"device_batch_verify_many: with the last job tampered gave {got}")
+    unchecked = sorted({n for r in rows.values() for n in r} - set(N_KERNEL_CHECK))
+    if unchecked:
+        fail(f"device_batch_verify_many launched kernels at row counts phase 3 did not check: "
+             f"{unchecked}")
+    say(f"many: {MERGE_JOBS} jobs x {BATCH} sets in one call, eagerly: {t:.3f} s, every job "
+        f"True; the last job tampered: only it False; {sum(sum(r.values()) for r in rows.values())} "
+        f"Fp launches, every row count checked in phase 3, on {smi}")
+    return t
+
+
 # --- comparison with an earlier commit's kernels (--compare-parent) -----------
 
 
@@ -796,7 +1011,7 @@ def compare_kernels(parent, main_run, dev, smi):
     return result
 
 
-# --- phase 6 -----------------------------------------------------------------
+# --- phase 7 -----------------------------------------------------------------
 
 
 def check_against_cpu(dev):
@@ -876,12 +1091,15 @@ def main():
     main_run = main_path(dev, smi)
     # 5. profile of one merged verify and one 2048-set prep
     per_ms, profiled_ms = profile_main(main_run, smi)
-    # 6. check against the CPU path
+    # 6. single launch, and the J-job verify
+    single = single_launch(dev, smi, main_run)
+    many_s = verify_many(dev, smi, main_run)
+    # 7. check against the CPU path
     check_against_cpu(dev)
     if parent is not None:
         compare_kernels(parent, main_run, dev, smi)
 
-    # 7. report
+    # 8. report
     runs = {"verify": main_run["per_verify_rows"], "prep": main_run["per_prep_rows"]}
     kernels = []
     for name in fp_cuda.KERNELS:
@@ -892,6 +1110,9 @@ def main():
             "replaces": REPLACES[name],
             "status": "ok",
             "launches": main_run["launches"][name],
+            "launches_per_2048_single_launch": single["graph"].launches[name],
+            "launches_per_2048_single_launch_by_rows": single["graph"].rows[name],
+            "single_launch_replayed": single["replayed"][name],
         }
         for label, per_rows in runs.items():
             by_rows = per_rows[name]
@@ -914,9 +1135,18 @@ def main():
         })
         kernels.append(entry)
     merged = BATCH * MERGE_JOBS
+    g = single["graph"]
+    say("single: " + json.dumps({
+        "bytes_to_verdict_s": single["bytes_to_verdict_s"], "sigs_per_s": single["sigs_per_s"],
+        "host_bytes_s": single["host_s"], "replay_s": single["replay_s"],
+        "busy_ms": single["busy_ms"], "idle": single["idle"],
+        "device_events": single["device_events"], "nodes": g.nodes, "capture_s": g.capture_s,
+        "instantiate_s": g.instantiate_s, "pool_bytes": g.pool_bytes,
+        "fp_launches_per_replay": g.launches, "many_16x128_s": many_s}))
     say(f"result: {main_run['sigs_per_s']:.1f} sigs/s verify-only, "
         f"{main_run['bytes_to_verdict_sigs_per_s']:.1f} sigs/s bytes to verdict ({merged}-set "
-        f"merged batch, device prep {main_run['prep_s']:.3f} s) on {smi}")
+        f"merged batch, split schedule, device prep {main_run['prep_s']:.3f} s); single launch "
+        f"{single['sigs_per_s']:.1f} sigs/s bytes to verdict on {smi}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -4,8 +4,8 @@ Checks  e(-g1, sum_i r_i S_i) * prod_i e(r_i PK_i, H(m_i)) == 1  with ONE
 shared final exponentiation: the semantics of blst's
 `verifyMultipleSignatures` that the reference worker calls
 (`packages/beacon-node/src/chain/bls/multithread/worker.ts:52-96`).
-PyTorch counterpart of the split schedule of
-``lodestar_tpu.models.batch_verify``:
+PyTorch counterpart of ``lodestar_tpu.models.batch_verify``, its split
+schedule and its single-launch path:
 
 * **Prep** (`build_device_inputs`). With device prep active (the
   default on CUDA, `configure_device_prep`): compressed bytes and
@@ -21,6 +21,16 @@ PyTorch counterpart of the split schedule of
   exponentiation, the == 1 predicate, with fresh blinding coefficients
   from the host. Every base-field product, in prep and verify, runs in
   the CUDA kernels of ``ops/fp_cuda.py`` on the card.
+* **Single launch** (`verify_sets_single_launch`, the default on CUDA,
+  `configure_single_launch`): the host byte stage, then the whole chain
+  above (the three prep stages, blinding and aggregation, the Miller
+  loop, the final exponentiation, the ok bits folded into the verdict on
+  the device) as ONE counted dispatch per batch
+  (`ops.prep.SINGLE_LAUNCH_BUDGET`). On CUDA that dispatch is one replay
+  of a CUDA graph captured once per pow-2 size class (``graphs.py``); on
+  the CPU the same body runs eagerly. The split schedule above stays as
+  its reference. A capture, replay or body error propagates: nothing
+  falls back to the split schedule.
 
 The blinding is mandatory: an unrandomized batch is forgeable (defects in
 different sets can cancel). Coefficients come from ``os.urandom`` (never
@@ -31,6 +41,7 @@ tests can feed two implementations the same bits.
 
 from __future__ import annotations
 
+import functools
 import os
 
 import numpy as np
@@ -41,6 +52,7 @@ from ..crypto.bls.api import SecretKey, SignatureSet, sign
 from ..crypto.bls.curve import G1_GEN
 from ..crypto.bls.hash_to_curve import hash_to_g2
 from ..crypto.bls.serdes import PointDecodeError, g1_from_bytes, g2_from_bytes
+from ..graphs import GraphCache
 from ..ops import curve as cv
 from ..ops import fp
 from ..ops import pairing as prg
@@ -51,17 +63,25 @@ from ..ops.prep import pad_pow2, pad_rows
 __all__ = [
     "COEFF_BITS",
     "PREP_MODES",
+    "SINGLE_LAUNCH_MODES",
     "resolve_device",
     "configure_device_prep",
     "device_prep_active",
+    "configure_single_launch",
+    "single_launch_active",
     "prepare_sets",
     "prepare_sets_device",
     "pad_rows",
     "build_device_inputs",
     "inputs_from_numpy",
     "device_batch_verify",
+    "device_batch_verify_many",
     "make_synthetic_sets",
     "verify_signature_sets_device",
+    "SingleLaunchInputs",
+    "prepare_single_launch_inputs",
+    "verify_sets_single_launch",
+    "verify_prepared",
 ]
 
 COEFF_BITS = 64  # blinding scalar width, matches blst's 64-bit rand coeffs
@@ -99,6 +119,13 @@ def _g2_batch_host(pts) -> tuple[np.ndarray, np.ndarray]:
 # -g1 generator, mont form (host numpy)
 _NEG_G1_X = fp.mont_limbs_from_int(G1_GEN[0])
 _NEG_G1_Y = fp.mont_limbs_from_int((-G1_GEN[1]) % C.P)
+
+
+@functools.lru_cache(maxsize=None)
+def _neg_g1_on(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The -g1 generator's limbs on `device`, copied there once (a copy from
+    host memory per batch would wait for the stream, and fail a capture)."""
+    return (torch.as_tensor(_NEG_G1_X, device=device), torch.as_tensor(_NEG_G1_Y, device=device))
 
 
 def _bits_msb(scalars, width: int) -> np.ndarray:
@@ -162,6 +189,41 @@ def device_prep_active(mode: str | None = None, device=None) -> bool:
     if mode == "auto":
         return torch.device("cuda" if device is None else device).type == "cuda"
     return mode == "on"
+
+
+# --- single-launch verification ----------------------------------------------------
+# "auto" takes the single-launch path on a CUDA device unless device prep is
+# pinned "off" (the single program subsumes the prep stages, so a host-prep
+# pin keeps the split schedule), and the split schedule on the CPU, as
+# device prep's "auto" does; "on" forces the path, "off" keeps the split
+# schedule. Prep "on" does not force single launch.
+SINGLE_LAUNCH_MODES = ("auto", "on", "off")
+_single_launch_mode = "auto"
+
+
+def configure_single_launch(mode: str | None = None) -> str:
+    """Set the process-wide single-launch mode; returns the previous one."""
+    global _single_launch_mode
+    prev = _single_launch_mode
+    if mode is not None:
+        if mode not in SINGLE_LAUNCH_MODES:
+            raise ValueError(f"single-launch mode must be one of {SINGLE_LAUNCH_MODES}, got {mode!r}")
+        _single_launch_mode = mode
+    return prev
+
+
+def single_launch_active(mode: str | None = None, device=None, prep: str | None = None) -> bool:
+    """Resolve a single-launch mode ("auto": CUDA -> single launch, unless
+    the prep mode, `prep` or else the process-wide one, is "off")."""
+    mode = mode or _single_launch_mode
+    if mode not in SINGLE_LAUNCH_MODES:
+        raise ValueError(f"single-launch mode must be one of {SINGLE_LAUNCH_MODES}, got {mode!r}")
+    prep = prep or _prep_mode
+    if prep not in PREP_MODES:
+        raise ValueError(f"device prep mode must be one of {PREP_MODES}, got {prep!r}")
+    if mode != "auto":
+        return mode == "on"
+    return prep != "off" and torch.device("cuda" if device is None else device).type == "cuda"
 
 
 def prepare_sets(sets: list[SignatureSet]):
@@ -314,44 +376,57 @@ def build_device_inputs(sets: list[SignatureSet], size: int | None = None, devic
 
 def _blind_and_aggregate_body(pk_x, pk_y, sig_x, sig_y, coeff_bits, mask):
     """Blinded scalar muls (r_i*PK_i in G1, r_i*S_i in G2), the masked G2
-    fold to the aggregate signature, affine conversions."""
+    fold to the aggregate signature, affine conversions. The sets axis is
+    the last axis of `mask`; leading axes before it are independent jobs
+    (`device_batch_verify_many`), each with its own aggregate."""
     dev = pk_x.device
     one1 = fp.one_mont((), dev)
     one2 = tw.fp2_one((), dev)
     rpk = cv.scalar_mul_var(cv.F1, (pk_x, pk_y), coeff_bits, one1)
     rsig = cv.scalar_mul_var(cv.F2, (sig_x, sig_y), coeff_bits, one2)
     # padded entries must not contribute to the signature aggregate
-    rsig = (rsig[0], rsig[1], torch.where(mask[:, None, None], rsig[2], torch.zeros_like(rsig[2])))
-    s_agg = cv.fold_sum(cv.F2, rsig)
+    rsig = (rsig[0], rsig[1], torch.where(mask[..., None, None], rsig[2], torch.zeros_like(rsig[2])))
+    s_agg = cv.fold_sum(cv.F2, tuple(c.movedim(-3, 0) for c in rsig))  # folds the sets axis
     rpk_aff = cv.jac_to_affine_batch(cv.F1, rpk)
-    s_aff = cv.jac_to_affine_batch(cv.F2, tuple(c[None] for c in s_agg))
+    s_aff = cv.jac_to_affine_batch(cv.F2, tuple(c.unsqueeze(-3) for c in s_agg))
     s_inf = cv.jac_is_inf(cv.F2, s_agg)
     return rpk_aff, s_aff, s_inf
 
 
 def _assemble_pairs(rpk_aff, s_aff, s_inf, h_x, h_y, mask):
     """Miller batch: N blinded-pubkey/message pairs + the (-g1, S_agg)
-    pair. Padded or infinite entries get a valid placeholder pair (the
-    -g1 generator with message 0's point); the mask drops their value."""
-    dev = h_x.device
-    neg_g1_x = fp.const(_NEG_G1_X, dev)
-    neg_g1_y = fp.const(_NEG_G1_Y, dev)
-    p_x = torch.cat([rpk_aff[0], neg_g1_x[None]], dim=0)
-    p_y = torch.cat([rpk_aff[1], neg_g1_y[None]], dim=0)
-    q_x = torch.cat([h_x, s_aff[0]], dim=0)
-    q_y = torch.cat([h_y, s_aff[1]], dim=0)
-    pair_mask = torch.cat([mask, ~s_inf[None]], dim=0)
-    mm = pair_mask[:, None, None]
+    pair (per job, on the sets axis). Padded or infinite entries get a
+    valid placeholder pair (the -g1 generator with message 0's point); the
+    mask drops their value."""
+    k = mask.dim() - 1  # the sets axis
+    neg_g1_x, neg_g1_y = _neg_g1_on(h_x.device)
+    lead = (*mask.shape[:-1], 1)
+    p_x = torch.cat([rpk_aff[0], neg_g1_x.expand(*lead, fp.LIMBS)], dim=k)
+    p_y = torch.cat([rpk_aff[1], neg_g1_y.expand(*lead, fp.LIMBS)], dim=k)
+    q_x = torch.cat([h_x, s_aff[0]], dim=k)
+    q_y = torch.cat([h_y, s_aff[1]], dim=k)
+    pair_mask = torch.cat([mask, ~s_inf[..., None]], dim=-1)
+    mm = pair_mask[..., None, None]
     p_x = torch.where(mm[..., 0], p_x, neg_g1_x)
     p_y = torch.where(mm[..., 0], p_y, neg_g1_y)
-    q_x = torch.where(mm, q_x, h_x[0])
-    q_y = torch.where(mm, q_y, h_y[0])
+    q_x = torch.where(mm, q_x, h_x.narrow(k, 0, 1))
+    q_y = torch.where(mm, q_y, h_y.narrow(k, 0, 1))
     return p_x, p_y, q_x, q_y, pair_mask
 
 
 def _fold_verdict_body(fs, pair_mask):
-    f = prg.fp12_product_fold(fs, mask=pair_mask)
+    """The masked product of each job's Miller values (sets axis = the last
+    axis of `pair_mask`), the final exponentiation, the == 1 predicate."""
+    k = pair_mask.dim() - 1
+    f = prg.fp12_product_fold(fs.movedim(k, 0), mask=pair_mask.movedim(k, 0))
     return tw.fp12_eq_one(prg.final_exponentiation(f))
+
+
+def _verify_body(pk_x, pk_y, h_x, h_y, sig_x, sig_y, coeff_bits, mask):
+    rpk_aff, s_aff, s_inf = _blind_and_aggregate_body(pk_x, pk_y, sig_x, sig_y, coeff_bits, mask)
+    p_x, p_y, q_x, q_y, pair_mask = _assemble_pairs(rpk_aff, s_aff, s_inf, h_x, h_y, mask)
+    fs = prg.miller_loop((p_x, p_y), (q_x, q_y))
+    return _fold_verdict_body(fs, pair_mask)
 
 
 def device_batch_verify(pk, h, sig, coeff_bits, mask) -> torch.Tensor:
@@ -360,10 +435,50 @@ def device_batch_verify(pk, h, sig, coeff_bits, mask) -> torch.Tensor:
     pk: (x, y) each (N, 33); h/sig: (x, y) each (N, 2, 33); coeff_bits:
     (N, 64) int32 MSB first; mask: (N,) bool, False entries are padding.
     Returns a 0-d bool tensor."""
-    rpk_aff, s_aff, s_inf = _blind_and_aggregate_body(pk[0], pk[1], sig[0], sig[1], coeff_bits, mask)
-    p_x, p_y, q_x, q_y, pair_mask = _assemble_pairs(rpk_aff, s_aff, s_inf, h[0], h[1], mask)
-    fs = prg.miller_loop((p_x, p_y), (q_x, q_y))
-    return _fold_verdict_body(fs, pair_mask)
+    if mask.dim() != 1:
+        raise ValueError(f"mask must have shape (N,), got {tuple(mask.shape)}")
+    return _verify_body(pk[0], pk[1], h[0], h[1], sig[0], sig[1], coeff_bits, mask)
+
+
+def device_batch_verify_many(pk, h, sig, coeff_bits, mask) -> torch.Tensor:
+    """J independent RLC jobs verified in one call: every input has a
+    leading job axis J (pk: (J, N, 33) each, h/sig: (J, N, 2, 33) each,
+    coeff_bits: (J, N, 64), mask: (J, N)). Each job keeps its own blinding,
+    aggregate, fold, final exponentiation and verdict; the scalar muls and
+    the Miller loop run on all J*N rows at once, so every kernel launch
+    serves all jobs. The counterpart of the JAX package's `jax.vmap` of the
+    verify program. Returns (J,) bool verdicts."""
+    if mask.dim() != 2:
+        raise ValueError(f"mask must have shape (J, N), got {tuple(mask.shape)}")
+    return _verify_body(pk[0], pk[1], h[0], h[1], sig[0], sig[1], coeff_bits, mask)
+
+
+def _single_launch_verify(pk_x_std, pk_sign, sig_x_std, sig_sign, lo, hi, struct_ok,
+                          coeff_bits, mask):
+    """The single-launch body: compressed-point limbs and hash-to-field
+    halves in (the host byte stage's arrays, rows padded to a size class),
+    (verdict, batch_valid) out as two 0-d bool tensors on the device.
+
+    The fused prep schedule's three legs (field stage, subgroup stage, hash
+    finish), then the verify core. Rows that fail the host's structural
+    checks (`struct_ok`) or prep's on-curve and subgroup checks still carry
+    in-contract limbs, so the group ops stay defined on them; `batch_valid`
+    (every unmasked row valid) vetoes the verdict on the device, so the
+    body makes no host sync and no copy from host memory: on CUDA it is
+    captured as one graph per size class. `batch_valid` tells a structural
+    reject from a failed pairing check; both are a final False."""
+    pk_x, pk_y, pk_curve, sig_x, sig_y, sig_curve, q0, q1 = dp._prep_field_stage(
+        pk_x_std, pk_sign, sig_x_std, sig_sign, lo, hi
+    )
+    pk_ok, sig_ok = dp._prep_subgroup_stage(pk_x, pk_y, pk_curve, sig_x, sig_y, sig_curve)
+    h_x, h_y = dp.hash_finish(q0, q1)
+    rlc_ok = _verify_body(pk_x, pk_y, h_x, h_y, sig_x, sig_y, coeff_bits, mask)
+    batch_valid = torch.all((struct_ok & pk_ok & sig_ok) | ~mask)
+    return batch_valid & rlc_ok, batch_valid
+
+
+#: the single-launch body as one CUDA graph per (device, size class)
+_SINGLE_LAUNCH_GRAPHS = GraphCache(_single_launch_verify)
 
 
 def make_synthetic_sets(n: int, seed: int = 1) -> list[SignatureSet]:
@@ -377,15 +492,108 @@ def make_synthetic_sets(n: int, seed: int = 1) -> list[SignatureSet]:
     return sets
 
 
-def verify_signature_sets_device(sets: list[SignatureSet], device=None,
-                                 prep: str | None = None) -> bool:
-    """End-to-end batch verify of N signature sets, compressed bytes in:
-    prep (device prep on CUDA by default; see `build_device_inputs`), then
-    the verification core on `device` (CUDA unless the caller passes
-    another; raises when CUDA is missing)."""
-    dev = resolve_device(device)
-    inputs = build_device_inputs(sets, device=dev, prep=prep)
+def _verify_sets_split(sets: list[SignatureSet], device=None, prep: str | None = None) -> bool:
+    """The split schedule: prep (`build_device_inputs`: device prep's three
+    stage calls, or the oracle), one host read of the ok bits, then the
+    verify core. The single-launch path's reference."""
+    inputs = build_device_inputs(sets, device=device, prep=prep)
     if inputs is None:
         return False
+    pk, h, sig, bits, mask = inputs
+    return bool(device_batch_verify(pk, h, sig, bits, mask))
+
+
+def verify_signature_sets_device(sets: list[SignatureSet], device=None,
+                                 prep: str | None = None) -> bool:
+    """End-to-end batch verify of N signature sets, compressed bytes in, on
+    `device` (CUDA unless the caller passes another; raises when CUDA is
+    missing). Where `single_launch_active` resolves true (the default on
+    CUDA) one single-launch dispatch; otherwise the split schedule (prep,
+    device prep on CUDA by default, see `build_device_inputs`, then the
+    verification core)."""
+    dev = resolve_device(device)
+    if single_launch_active(device=dev, prep=prep):
+        return verify_sets_single_launch(sets, device=dev)
+    return _verify_sets_split(sets, device=dev, prep=prep)
+
+
+class SingleLaunchInputs:
+    """Host-staged inputs of one single-launch dispatch: the host byte
+    stage's arrays (pk limbs, pk sign, sig limbs, sig sign, lo, hi, struct
+    ok), fresh blinding bits and the padding mask, all numpy, rows padded
+    to the size class; made by byte work only (no device work)."""
+
+    __slots__ = ("arrays", "bits", "mask", "n")
+
+    def __init__(self, arrays, bits, mask, n):
+        self.arrays = arrays
+        self.bits = bits
+        self.mask = mask
+        self.n = n
+
+
+def prepare_single_launch_inputs(sets: list[SignatureSet], coeff_bits=None):
+    """The host byte stage of the single-launch path: flag parsing, limb
+    unpacking, expand_message_xmd and fresh blinding bits (or the given
+    `coeff_bits`, (size, 64) MSB first), with zero dispatches. Returns
+    SingleLaunchInputs, or None for an empty batch or a set with an
+    encoding of the wrong length (a final False, never a dispatch)."""
+    if not sets:
+        return None
+    n = len(sets)
+    size = pad_pow2(n)
+    parsed = _parse_host_arrays(sets, size)
+    if parsed is None:
+        return None
+    pk_limbs, pk_sign, pk_struct, sig_limbs, sig_sign, sig_struct, lo, hi = parsed
+    bits, mask = _blinding_and_mask(n, size)
+    if coeff_bits is not None:
+        bits = np.asarray(coeff_bits, dtype=np.int32)
+        if bits.shape != (size, COEFF_BITS):
+            raise ValueError(f"coeff_bits must have shape ({size}, {COEFF_BITS})")
+    arrays = (pk_limbs, pk_sign, sig_limbs, sig_sign, lo, hi, pk_struct & sig_struct)
+    return SingleLaunchInputs(arrays, bits, mask, n)
+
+
+def _verify_single_prepared(si: SingleLaunchInputs, device=None) -> bool:
+    """ONE counted dispatch of the single-launch body on host-staged inputs:
+    on CUDA a replay of the size class's graph (captured on its first
+    batch), elsewhere the body run eagerly. Both outputs must be 0-d bool
+    tensors; anything else raises. Errors propagate (no fallback)."""
+    dev = resolve_device(device)
+    args = (*si.arrays, si.bits, si.mask)
+    if dev.type == "cuda":
+        verdict, batch_valid = dp._dispatch(_SINGLE_LAUNCH_GRAPHS, dev, *args)
+    else:
+        verdict, batch_valid = dp._dispatch(
+            _single_launch_verify, *(torch.as_tensor(np.ascontiguousarray(a), device=dev)
+                                     for a in args)
+        )
+    for name, t in (("verdict", verdict), ("batch_valid", batch_valid)):
+        if not isinstance(t, torch.Tensor) or t.shape != () or t.dtype != torch.bool:
+            raise RuntimeError(f"single-launch {name} anomaly: "
+                               f"{getattr(t, 'shape', None)}/{getattr(t, 'dtype', type(t))}")
+    return bool(verdict)
+
+
+def verify_sets_single_launch(sets: list[SignatureSet], device=None, coeff_bits=None) -> bool:
+    """End-to-end single-launch batch verify: compressed bytes in, ONE
+    counted dispatch (`ops.prep.SINGLE_LAUNCH_BUDGET`), verdict out, the
+    same verdict as the split schedule on the same sets. A wrong-length
+    encoding is a False with zero dispatches."""
+    dev = resolve_device(device)
+    si = prepare_single_launch_inputs(sets, coeff_bits=coeff_bits)
+    if si is None:
+        return False
+    return _verify_single_prepared(si, device=dev)
+
+
+def verify_prepared(inputs, device=None) -> bool:
+    """Verify a batch staged ahead: either the split schedule's
+    `build_device_inputs` tuple (tensors already on their device; one call
+    of the verify core here) or a `SingleLaunchInputs` (host bytes only; the
+    one single-launch dispatch runs here, on `device`)."""
+    if isinstance(inputs, SingleLaunchInputs):
+        return _verify_single_prepared(inputs, device=device)
     pk, h, sig, bits, mask = inputs
     return bool(device_batch_verify(pk, h, sig, bits, mask))

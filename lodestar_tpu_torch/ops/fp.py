@@ -189,7 +189,7 @@ def _carry_once(x: torch.Tensor, drop_top: bool = False) -> torch.Tensor:
     if drop_top:
         out = x & LIMB_MASK
     else:
-        c[..., -1] = 0  # the top limb keeps its carry
+        c[..., -1].zero_()  # the top limb keeps its carry (a fill on the device)
         out = x - (c << LIMB_BITS)
     out[..., 1:] += c[..., :-1]  # c and out are fresh tensors
     return out

@@ -159,15 +159,16 @@ def final_exponentiation(f):
 def fp12_product_fold(f, mask=None):
     """Product of a batch of Fp12 values down axis 0 (tree fold).
 
-    f: (B, 2, 3, 2, 33). mask: optional (B,) bool; False entries are
-    replaced with one. Returns (2, 3, 2, 33)."""
+    f: (B, ..., 2, 3, 2, 33), any batch dims after B folded apart. mask:
+    optional (B, ...) bool; False entries are replaced with one. Returns
+    (..., 2, 3, 2, 33)."""
     if mask is not None:
-        ones = tw.fp12_one(f.shape[:1], f.device)
-        f = torch.where(mask[:, None, None, None, None], f, ones)
+        ones = tw.fp12_one(f.shape[:-4], f.device)
+        f = torch.where(mask[..., None, None, None, None], f, ones)
     b = f.shape[0]
     size = 1 if b <= 1 else 1 << (b - 1).bit_length()
     if size != b:
-        f = torch.cat([f, tw.fp12_one((size - b,), f.device)], dim=0)
+        f = torch.cat([f, tw.fp12_one((size - b, *f.shape[1:-4]), f.device)], dim=0)
     while f.shape[0] > 1:
         half = f.shape[0] // 2
         f = tw.fp12_mul(f[:half], f[half:])

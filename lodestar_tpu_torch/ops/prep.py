@@ -74,6 +74,7 @@ __all__ = [
     "prepare_arrays_unfused",
     "FUSED_PREP_LAUNCHES",
     "UNFUSED_PREP_LAUNCHES",
+    "SINGLE_LAUNCH_BUDGET",
 ]
 
 P = F.P
@@ -175,6 +176,11 @@ FUSED_PREP_LAUNCHES = 3
 #: stage calls of one `prepare_arrays_unfused`: one per leg (G1 decompress,
 #: G2 decompress, wide reduction, SSWU map, hash finish)
 UNFUSED_PREP_LAUNCHES = 5
+#: counted dispatches of one single-launch batch
+#: (`models/batch_verify.py` `verify_sets_single_launch`): the whole chain,
+#: field stage to final exponentiation, compressed bytes in and verdict out,
+#: whatever the batch size; on the card one CUDA-graph replay
+SINGLE_LAUNCH_BUDGET = 1
 
 
 def configure_launch_counter(counter) -> None:

@@ -37,6 +37,9 @@ import torch
 from lodestar_tpu_torch.ops import fp_cuda, prep
 assert fp_cuda._lib is None, "a kernel library was loaded at import"
 assert prep._const_on.cache_info().currsize == 0, "a prep constant was put on a device at import"
+from lodestar_tpu_torch.models import batch_verify
+assert batch_verify._neg_g1_on.cache_info().currsize == 0, "-g1 was put on a device at import"
+assert not batch_verify._SINGLE_LAUNCH_GRAPHS.graphs, "a graph was captured at import"
 assert not torch.cuda.is_initialized(), "CUDA was initialized at import"
 print("imported", len(names))
 """
