@@ -67,16 +67,39 @@ Phases, in order; any failure exits non-zero and prints no result:
             `device_batch_verify_many` on the merged batch as 16 jobs of
             128 (every job True; one tampered job False), eagerly, at row
             counts phase 3 checked.
-7. check    a Miller loop + final exponentiation of two pairs on the card
+7. serve    serving through the port's verifier pool: `warm_single_launch`
+            captures every size class a package of the pool can reach
+            (`POOL_SIZE_CLASSES`, 8 through 1024; 128 is already captured
+            by phase 6), each class printed with its capture and
+            instantiate s, node count, pool MiB, Fp launches per replay and
+            the mean of 3 copy in + replay + verdict read; a warmed graph
+            must launch the kernels only at row counts phase 3 checked
+            (`POOL_ROWS`). Then `BlsDeviceVerifierPool(mesh_mode="auto")`
+            (one lane on one GPU) serves, with kernel launch counts and
+            replays reset just before and read just after, and no capture
+            allowed: 16 batchable jobs of 128 at API priority (4 replays of
+            class 512), the same at range-sync priority (16 of class 128),
+            512 one-set gossip-attestation jobs at once (the buffer and
+            16-job chunks: replays of class 16, and 8 for a short last
+            chunk), 4 jobs of 128 with two swapped signatures in the second
+            (one class-512 replay False, then 4 per-job class-128 replays:
+            [True, False, True, True]), a wrong-length set and a set whose
+            pubkey is not bytes (False, no replay); the lane's breaker must
+            show no failure. Each run prints its wall s, sigs/s, launches
+            and replays by class; the API run again through a pipelined
+            pool (`pipeline="on"`) prints its `pipeline_stats()`. Every
+            kernel must be launched by a replay while the pool serves, and
+            none eagerly.
+8. check    a Miller loop + final exponentiation of two pairs on the card
             equals the CPU path (the plain versions) limb for limb, and
             equals e(P, Q) from the host pairing check on canonical values.
-8. report   one JSON line of kernels, the `nvidia-smi` line, and the last
+9. report   one JSON line of kernels, the `nvidia-smi` line, and the last
             line {"ok": true, "device": {...}}.
 
 With `--compare-parent DIR` (a checkout of an earlier commit, for example
 unpacked with `git archive` into a directory that .gitignore lists),
 phase 2 also builds DIR's kernel source, beside this one's, and a step
-between phases 7 and 8 checks each of its kernels against the plain
+between phases 8 and 9 checks each of its kernels against the plain
 version and times it beside this source's, in turns (parent, this, this,
 parent), at the row counts of N_TIMED and of one merged verify, each
 with its ms per verify.
@@ -111,9 +134,20 @@ PREP_ROWS = (2048, 4096, 6144, 8192, 12288, 20480, 30720, 81920, 122880)
 MANY_ROWS = (16, 32, 48, 64, 96, 128, 144, 192, 256, 288, 384, 512, 576, 768, 864, 1024, 1536,
              1728, 2048, 3072, 3456, 4096, 4128, 6144, 6192, 6912, 12288, 13824, 24576, 24768,
              27648, 37152, 49536, 55296, 74304, 110592)
+# POOL_ROWS: every row count the single-launch graphs of the verifier pool's
+# size classes (8 through 1024) launch a kernel at, counted on the CPU by
+# `rows_on_meta` (the body on meta tensors with stub products); phase 7 fails
+# if a warmed graph launches one not checked here.
+POOL_ROWS = (1, 2, 3, 4, 6, 8, 9, 12, 16, 18, 24, 27, 32, 34, 36, 48, 51, 54, 64, 66, 80, 96,
+             99, 108, 120, 128, 130, 160, 162, 192, 195, 204, 216, 240, 256, 258, 306, 320,
+             324, 384, 387, 396, 408, 432, 480, 512, 514, 594, 612, 640, 768, 771, 780, 792,
+             864, 960, 1024, 1026, 1170, 1188, 1280, 1536, 1539, 1548, 1560, 1728, 1920, 2048,
+             2050, 2322, 2340, 2560, 3072, 3075, 3084, 3096, 3456, 3840, 4096, 4626, 4644,
+             5120, 6144, 6156, 6168, 6912, 7680, 9234, 9252, 10240, 12288, 12300, 12312, 13824,
+             15360, 18450, 18468, 20480, 24600, 27648, 30720, 36900, 40960, 55296, 61440)
 N_TIMED = (1, 12, 36, 2048, 4096, 6147, 20480, 21120, 21121, 24588, 30720, 73764, 110646,
            122880)
-N_KERNEL_CHECK = tuple(sorted({*N_TIMED, *PREP_ROWS, *MANY_ROWS, 2, 15, 16, 17, 31, 32, 33, 63,
+N_KERNEL_CHECK = tuple(sorted({*N_TIMED, *PREP_ROWS, *MANY_ROWS, *POOL_ROWS, 2, 15, 16, 17, 31, 32, 33, 63,
                                64, 65, 511, 512, 513, 2049, 2112, 2113, 4098}))
 N_COMPARE = 110646
 BATCH = 128  # sets per gossip job
@@ -212,6 +246,34 @@ def graph_ms(fn, iters=50, replays=5):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (replays * iters)
+
+
+def rows_on_meta(size):
+    """{kernel: {rows: launches}} of the single-launch body at one size
+    class, counted on the CPU with no card: the body runs on meta tensors
+    (shapes only) with the kernel wrappers' launch replaced by a stub that
+    books the row count and returns an empty meta result."""
+    import numpy as np
+    import torch
+
+    from lodestar_tpu_torch.models import batch_verify as bv
+    from lodestar_tpu_torch.ops import fp_cuda
+
+    rows = {k: {} for k in fp_cuda.KERNELS}
+
+    def stub(name, *args, lib=None):
+        lead = args[0].shape[:-1]
+        n = int(np.prod(lead))
+        rows[name][n] = rows[name].get(n, 0) + 1
+        return torch.empty((*lead, fp_cuda._SHAPES[name][2]), dtype=torch.int32, device="meta")
+
+    real, fp_cuda.launch = fp_cuda.launch, stub
+    try:
+        bv._single_launch_verify(*(torch.as_tensor(np.ascontiguousarray(a)).to("meta")
+                                   for a in bv._warm_inputs(size)))
+    finally:
+        fp_cuda.launch = real
+    return rows
 
 
 def bound(name, n):
@@ -967,6 +1029,152 @@ def verify_many(dev, smi, main):
     return t
 
 
+# --- phase 7 -----------------------------------------------------------------
+
+
+def serve(dev, smi, main):
+    """Phase 7: serving through the port's verifier pool. Every size class a
+    package of the pool can reach (`POOL_SIZE_CLASSES`) is captured by
+    `warm_single_launch` first; then a pool built as a node builds it
+    (`mesh_mode="auto"`: one lane on one GPU) serves API, range-sync and
+    gossip traffic, a tampered job and two malformed sets, with no capture
+    while it serves. Returns its figures and counts."""
+    import asyncio
+    import dataclasses
+
+    import torch
+
+    from lodestar_tpu_torch import graphs
+    from lodestar_tpu_torch.chain.bls import BlsDeviceVerifierPool, VerifySignatureOpts
+    from lodestar_tpu_torch.chain.bls.pool import POOL_SIZE_CLASSES
+    from lodestar_tpu_torch.models import batch_verify as bv
+    from lodestar_tpu_torch.ops import fp_cuda
+    from lodestar_tpu_torch.scheduler import PriorityClass
+
+    cache = bv._SINGLE_LAUNCH_GRAPHS
+    merged_sets = main["merged_sets"]
+    t0 = time.perf_counter()
+    warmed = bv.warm_single_launch(POOL_SIZE_CLASSES, device=dev)
+    warm_s = time.perf_counter() - t0
+    say(f"serve: warm_single_launch captured classes {sorted(warmed)} in {warm_s:.1f} s "
+        f"(classes already captured: "
+        f"{sorted(set(POOL_SIZE_CLASSES) - set(warmed))}) on {smi}")
+    per_class = {}
+    for size in POOL_SIZE_CLASSES:
+        g = cache.graphs.get((dev.index, size))
+        if g is None:
+            fail(f"serve: class {size} has no graph after the warm-up")
+        unchecked = sorted({n for r in g.rows.values() for n in r} - set(N_KERNEL_CHECK))
+        if unchecked:
+            fail(f"serve: the class-{size} graph launches kernels at row counts phase 3 did "
+                 f"not check: {unchecked}")
+        si = bv.prepare_single_launch_inputs(merged_sets[:size])
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            verdict, batch_valid = cache(dev, *si.arrays, si.bits, si.mask)
+            times.append(time.perf_counter() - t0)
+            if not (bool(verdict) and bool(batch_valid)):
+                fail(f"serve: a class-{size} replay of {size} valid sets did not verify")
+        per_class[size] = {**{k: v for k, v in g.info().items() if k != "rows"},
+                           "replay_s": sum(times) / len(times), "launches": g.launches,
+                           "warmed_here": size in warmed}
+        say(f"serve: class {size}: capture {g.capture_s:.2f} s, instantiate "
+            f"{g.instantiate_s:.2f} s, {g.nodes} nodes, pool {g.pool_bytes / 2**20:.1f} MiB, Fp "
+            f"launches per replay {sum(g.launches.values())} {g.launches}; copy in + replay + "
+            f"verdict read x3: {', '.join(f'{t:.3f}' for t in times)} s (mean "
+            f"{per_class[size]['replay_s']:.3f} s, {size / per_class[size]['replay_s']:.1f} "
+            f"sigs/s) on {smi}")
+
+    sets = main["batches"]["valid"]
+    jobs16 = [merged_sets[i * BATCH:(i + 1) * BATCH] for i in range(MERGE_JOBS)]
+    tampered = [sets, main["batches"]["swapped"], sets, sets]
+    wrong_length = [dataclasses.replace(sets[0], signature=sets[0].signature[:95])]
+    unreadable = [dataclasses.replace(sets[0], pubkey=None)]
+
+    def replays():
+        return {size: g.replays for (idx, size), g in cache.graphs.items() if idx == dev.index}
+
+    async def traffic(pool, jobs, priority, batchable=True):
+        opts = VerifySignatureOpts(batchable=batchable, priority=priority)
+        return list(await asyncio.gather(*(pool.verify_signature_sets(j, opts) for j in jobs)))
+
+    runs = {}
+
+    async def serve_all():
+        pool = BlsDeviceVerifierPool(mesh_mode="auto")
+        if len(pool.mesh) != torch.cuda.device_count():
+            fail(f"serve: the auto mesh has {len(pool.mesh)} lanes on "
+                 f"{torch.cuda.device_count()} devices")
+        lane = pool.mesh.lanes[0]
+        plan = (
+            ("api_16x128", jobs16, PriorityClass.API, True, [True] * MERGE_JOBS, {512: 4}),
+            ("rangesync_16x128", jobs16, PriorityClass.RANGE_SYNC, True, [True] * MERGE_JOBS,
+             {128: MERGE_JOBS}),
+            ("gossip_512x1", [[s] for s in merged_sets[:512]], PriorityClass.GOSSIP_ATTESTATION,
+             True, [True] * 512, None),
+            ("tampered", tampered, PriorityClass.API, True, [True, False, True, True],
+             {512: 1, 128: 4}),
+            ("wrong_length", [wrong_length], PriorityClass.API, False, [False], {}),
+            ("unreadable", [unreadable], PriorityClass.API, False, [False], {}),
+        )
+        for name, jobs, priority, batchable, want, want_replays in plan:
+            before, launches = replays(), lane.launches
+            n_sets = sum(len(j) for j in jobs)
+            t0 = time.perf_counter()
+            got = await traffic(pool, jobs, priority, batchable)
+            wall = time.perf_counter() - t0
+            after = replays()
+            by_class = {k: after[k] - before.get(k, 0) for k in sorted(after)
+                        if after[k] != before.get(k, 0)}
+            run = {"wall_s": wall, "sets": n_sets, "sigs_per_s": n_sets / wall,
+                   "launches": lane.launches - launches, "replays_by_class": by_class}
+            runs[name] = run
+            say(f"serve: {name}: {len(jobs)} jobs, {n_sets} sets in {wall:.3f} s "
+                f"({run['sigs_per_s']:.1f} sigs/s), {run['launches']} launches, replays by "
+                f"class {by_class} on {smi}")
+            if got != want:
+                fail(f"serve: {name} gave {got}, not {want}")
+            if want_replays is not None and by_class != want_replays:
+                fail(f"serve: {name} replayed {by_class}, not {want_replays}")
+            if want_replays is None and (set(by_class) - {8, 16} or
+                                         sum(by_class.values()) != run["launches"]):
+                fail(f"serve: {name} replayed {by_class} in {run['launches']} launches")
+        if lane.breaker.state().name != "CLOSED" or lane.breaker._failures:
+            fail(f"serve: the lane's breaker shows a failure ({lane.breaker.state().name})")
+        await pool.close()
+
+        # the api run again through the pipelined pool: the same verdicts
+        pool = BlsDeviceVerifierPool(mesh_mode="auto", pipeline="on")
+        t0 = time.perf_counter()
+        got = await traffic(pool, jobs16, PriorityClass.API)
+        wall = time.perf_counter() - t0
+        stats = pool.pipeline_stats()
+        await pool.close()
+        if got != [True] * MERGE_JOBS or not stats["pipeline_enabled"]:
+            fail(f"serve: the pipelined api run gave {got} ({stats})")
+        runs["api_16x128_pipelined"] = {"wall_s": wall, "sigs_per_s": BATCH * MERGE_JOBS / wall,
+                                        "pipeline_stats": stats}
+        say(f"serve: api_16x128 pipelined: {wall:.3f} s ({BATCH * MERGE_JOBS / wall:.1f} "
+            f"sigs/s), pipeline_stats {stats} on {smi}")
+
+    captures = cache.captures
+    fp_cuda.reset_launches()
+    graphs.reset_replayed()  # the serving path's run starts here
+    asyncio.run(serve_all())
+    replayed = dict(graphs.REPLAYED)  # the serving path's run ends here
+    if cache.captures != captures:
+        fail(f"serve: {cache.captures - captures} graphs were captured while the pool served")
+    missing = [k for k in fp_cuda.KERNELS if replayed[k] <= 0]
+    if missing:
+        fail(f"serve: kernels never launched by a replay while the pool served: {missing}")
+    if any(fp_cuda.LAUNCHES.values()):
+        fail(f"serve: eager kernel launches while the pool served: {dict(fp_cuda.LAUNCHES)}")
+    say(f"serve: no capture while serving; Fp launches replayed {replayed}")
+    return {"warm_s": warm_s, "per_class": per_class, "runs": runs, "replayed": replayed}
+
+
 # --- comparison with an earlier commit's kernels (--compare-parent) -----------
 
 
@@ -1011,7 +1219,7 @@ def compare_kernels(parent, main_run, dev, smi):
     return result
 
 
-# --- phase 7 -----------------------------------------------------------------
+# --- phase 8 -----------------------------------------------------------------
 
 
 def check_against_cpu(dev):
@@ -1094,12 +1302,16 @@ def main():
     # 6. single launch, and the J-job verify
     single = single_launch(dev, smi, main_run)
     many_s = verify_many(dev, smi, main_run)
-    # 7. check against the CPU path
+    # 7. serving through the verifier pool
+    served = serve(dev, smi, main_run)
+    # 8. check against the CPU path
     check_against_cpu(dev)
     if parent is not None:
         compare_kernels(parent, main_run, dev, smi)
 
-    # 8. report
+    # 9. report
+    from lodestar_tpu_torch.models import batch_verify as bv
+
     runs = {"verify": main_run["per_verify_rows"], "prep": main_run["per_prep_rows"]}
     kernels = []
     for name in fp_cuda.KERNELS:
@@ -1113,6 +1325,11 @@ def main():
             "launches_per_2048_single_launch": single["graph"].launches[name],
             "launches_per_2048_single_launch_by_rows": single["graph"].rows[name],
             "single_launch_replayed": single["replayed"][name],
+            "launches_per_replay_by_class": {
+                size: g.launches[name]
+                for (idx, size), g in sorted(bv._SINGLE_LAUNCH_GRAPHS.graphs.items())
+                if idx == dev.index},
+            "serve_replayed": served["replayed"][name],
         }
         for label, per_rows in runs.items():
             by_rows = per_rows[name]
@@ -1143,6 +1360,11 @@ def main():
         "device_events": single["device_events"], "nodes": g.nodes, "capture_s": g.capture_s,
         "instantiate_s": g.instantiate_s, "pool_bytes": g.pool_bytes,
         "fp_launches_per_replay": g.launches, "many_16x128_s": many_s}))
+    say("serve: " + json.dumps({
+        "warm_s": served["warm_s"],
+        "per_class": {size: {k: v for k, v in c.items() if k != "launches"}
+                      for size, c in served["per_class"].items()},
+        "runs": served["runs"]}))
     say(f"result: {main_run['sigs_per_s']:.1f} sigs/s verify-only, "
         f"{main_run['bytes_to_verdict_sigs_per_s']:.1f} sigs/s bytes to verdict ({merged}-set "
         f"merged batch, split schedule, device prep {main_run['prep_s']:.3f} s); single launch "

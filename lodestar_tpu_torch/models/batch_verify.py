@@ -32,6 +32,19 @@ schedule and its single-launch path:
   its reference. A capture, replay or body error propagates: nothing
   falls back to the split schedule.
 
+* **Serving** (`make_lane_verify_fn`, `make_lane_verify_prepared_fn`,
+  `prepare_inputs_for_lane`, `warm_single_launch`): the entry points the
+  verifier pool (``chain/bls/pool.py``) and its lane mesh call, each
+  pinned to one device, and the warm-up that captures the size classes
+  its caller names (the pool's `POOL_SIZE_CLASSES`) before it serves.
+  Every prep leaves a record {layer, sets, start_ns, end_ns, rejected}
+  for the calling thread (`consume_prep_info`) and adds to the process
+  counters `prep_counts`.
+  A set whose fields cannot be read as bytes is a structural reject
+  (False, zero dispatches), as a wrong-length encoding is: it is the
+  input's fault, not the device's, so it must not charge a lane's
+  breaker.
+
 The blinding is mandatory: an unrandomized batch is forgeable (defects in
 different sets can cancel). Coefficients come from ``os.urandom`` (never
 a seeded generator); the first is 1, the rest are nonzero 64-bit.
@@ -43,6 +56,8 @@ from __future__ import annotations
 
 import functools
 import os
+import threading
+import time
 
 import numpy as np
 import torch
@@ -82,6 +97,14 @@ __all__ = [
     "prepare_single_launch_inputs",
     "verify_sets_single_launch",
     "verify_prepared",
+    "consume_prep_info",
+    "prep_counts",
+    "reset_prep_counts",
+    "mesh_device_count",
+    "prepare_inputs_for_lane",
+    "make_lane_verify_fn",
+    "make_lane_verify_prepared_fn",
+    "warm_single_launch",
 ]
 
 COEFF_BITS = 64  # blinding scalar width, matches blst's 64-bit rand coeffs
@@ -97,6 +120,71 @@ def resolve_device(device=None) -> torch.device:
             "CUDA is not available; pass device='cpu' to run the plain PyTorch path"
         )
     return dev
+
+
+# --- prep records and counters --------------------------------------------------
+# The layers a batch's prep ran on: the single-launch path's host byte stage,
+# device prep (`ops/prep.py`), or the pure-Python oracle on the host.
+PREP_LAYERS = ("single_launch", "device", "host")
+_prep_tls = threading.local()  # .info: the calling thread's last prep record
+_prep_lock = threading.Lock()
+_prep_sets = dict.fromkeys(PREP_LAYERS, 0)  # guarded by: _prep_lock
+_prep_seconds = dict.fromkeys(PREP_LAYERS, 0.0)  # guarded by: _prep_lock
+_prep_rejected = 0  # batches rejected by prep or by the device's batch_valid; guarded by: _prep_lock
+
+
+def consume_prep_info():
+    """Pop the calling thread's last prep record {layer, sets, start_ns,
+    end_ns, rejected}, or None: the pool reads it after a launch for its
+    `bls_prep` span."""
+    info = getattr(_prep_tls, "info", None)
+    _prep_tls.info = None
+    return info
+
+
+def _note_prep(layer: str, n_sets: int, t0_ns: int, rejected: bool = False) -> None:
+    end_ns = time.monotonic_ns()
+    _prep_tls.info = {"layer": layer, "sets": n_sets, "start_ns": t0_ns, "end_ns": end_ns,
+                      "rejected": rejected}
+    global _prep_rejected
+    with _prep_lock:
+        _prep_sets[layer] += n_sets
+        _prep_seconds[layer] += (end_ns - t0_ns) / 1e9
+        _prep_rejected += bool(rejected)
+
+
+def _note_rejected() -> None:
+    global _prep_rejected
+    with _prep_lock:
+        _prep_rejected += 1
+
+
+def prep_counts() -> dict:
+    """Sets and seconds of prep by layer, and rejected batches, since the
+    last reset (the process counters of this module)."""
+    with _prep_lock:
+        return {"sets": dict(_prep_sets), "seconds": dict(_prep_seconds),
+                "rejected": _prep_rejected}
+
+
+def reset_prep_counts() -> None:
+    global _prep_rejected
+    with _prep_lock:
+        for layer in PREP_LAYERS:
+            _prep_sets[layer] = 0
+            _prep_seconds[layer] = 0.0
+        _prep_rejected = 0
+
+
+def _set_bytes(sets: list[SignatureSet]):
+    """Each set's (pubkey, message, signature) as bytes, or None when a
+    field cannot be read as bytes (not bytes-like, a value out of byte
+    range, a failing `__bytes__`): a structural reject of the batch, never
+    a device error."""
+    try:
+        return [(bytes(s.pubkey), bytes(s.message), bytes(s.signature)) for s in sets]
+    except Exception:
+        return None
 
 
 def _fp_to_mont_host(xs: list[int]) -> np.ndarray:
@@ -233,18 +321,21 @@ def prepare_sets(sets: list[SignatureSet]):
     non-subgroup point, infinity pubkey or signature)."""
     if not sets:
         return None
+    raw = _set_bytes(sets)
+    if raw is None:
+        return None
     pk_pts, h_pts, sig_pts = [], [], []
     try:
-        for s in sets:
-            pk = g1_from_bytes(s.pubkey)
+        for pk_b, msg, sig_b in raw:
+            pk = g1_from_bytes(pk_b)
             if pk is None or not C.g1_in_subgroup(pk):
                 return None
-            sig = g2_from_bytes(s.signature)
+            sig = g2_from_bytes(sig_b)
             if sig is None or not C.g2_in_subgroup(sig):
                 return None
             pk_pts.append(pk)
             sig_pts.append(sig)
-            h_pts.append(hash_to_g2(s.message))
+            h_pts.append(hash_to_g2(msg))
     except PointDecodeError:
         return None
     return (
@@ -259,16 +350,16 @@ def _parse_host_arrays(sets: list[SignatureSet], size: int):
     limb parsing of size-padded rows, and expand_message_xmd halves
     (padding rows repeat row 0 and message 0). No device work. Returns
     (pk_limbs, pk_sign, pk_struct, sig_limbs, sig_sign, sig_struct, lo,
-    hi) numpy arrays, or None when a set has an encoding of the wrong
-    length (a structural reject, never a device error)."""
+    hi) numpy arrays, or None when a set has a field that is not bytes or
+    an encoding of the wrong length (a structural reject, never a device
+    error)."""
     n = len(sets)
-    if any(len(bytes(s.pubkey)) != 48 or len(bytes(s.signature)) != 96 for s in sets):
+    raw = _set_bytes(sets)
+    if raw is None or any(len(pk) != 48 or len(sig) != 96 for pk, _, sig in raw):
         return None
-    pk_raw = np.frombuffer(b"".join(bytes(s.pubkey) for s in sets), dtype=np.uint8).reshape(n, 48)
-    sig_raw = np.frombuffer(
-        b"".join(bytes(s.signature) for s in sets), dtype=np.uint8
-    ).reshape(n, 96)
-    msgs = [bytes(s.message) for s in sets]
+    pk_raw = np.frombuffer(b"".join(pk for pk, _, _ in raw), dtype=np.uint8).reshape(n, 48)
+    sig_raw = np.frombuffer(b"".join(sig for _, _, sig in raw), dtype=np.uint8).reshape(n, 96)
+    msgs = [msg for _, msg, _ in raw]
     pk_limbs, pk_sign, pk_struct = dp.parse_g1_compressed(pad_rows(pk_raw, size))
     sig_limbs, sig_sign, sig_struct = dp.parse_g2_compressed(pad_rows(sig_raw, size))
     lo, hi = dp.hash_to_field_limbs(msgs + [msgs[0]] * (size - n))
@@ -356,11 +447,15 @@ def build_device_inputs(sets: list[SignatureSet], size: int | None = None, devic
         if bits.shape != (size, COEFF_BITS):
             raise ValueError(f"coeff_bits must have shape ({size}, {COEFF_BITS})")
     if device_prep_active(prep, dev):
+        t0 = time.monotonic_ns()
         pk, h, sig, ok = _prepare_sets_device_arrays(sets, size, dev)
+        _note_prep("device", n, t0, rejected=not ok)
         if not ok:
             return None
         return pk, h, sig, torch.as_tensor(bits, device=dev), torch.as_tensor(mask, device=dev)
+    t0 = time.monotonic_ns()
     prepared = prepare_sets(sets)
+    _note_prep("host", n, t0, rejected=prepared is None)
     if prepared is None:
         return None
     (pk_x, pk_y), (h_x, h_y), (sig_x, sig_y) = prepared
@@ -536,14 +631,17 @@ def prepare_single_launch_inputs(sets: list[SignatureSet], coeff_bits=None):
     """The host byte stage of the single-launch path: flag parsing, limb
     unpacking, expand_message_xmd and fresh blinding bits (or the given
     `coeff_bits`, (size, 64) MSB first), with zero dispatches. Returns
-    SingleLaunchInputs, or None for an empty batch or a set with an
-    encoding of the wrong length (a final False, never a dispatch)."""
+    SingleLaunchInputs, or None for an empty batch or a set with a field
+    that is not bytes or an encoding of the wrong length (a final False,
+    never a dispatch)."""
     if not sets:
         return None
     n = len(sets)
+    t0 = time.monotonic_ns()
     size = pad_pow2(n)
     parsed = _parse_host_arrays(sets, size)
     if parsed is None:
+        _note_prep("single_launch", n, t0, rejected=True)
         return None
     pk_limbs, pk_sign, pk_struct, sig_limbs, sig_sign, sig_struct, lo, hi = parsed
     bits, mask = _blinding_and_mask(n, size)
@@ -552,6 +650,7 @@ def prepare_single_launch_inputs(sets: list[SignatureSet], coeff_bits=None):
         if bits.shape != (size, COEFF_BITS):
             raise ValueError(f"coeff_bits must have shape ({size}, {COEFF_BITS})")
     arrays = (pk_limbs, pk_sign, sig_limbs, sig_sign, lo, hi, pk_struct & sig_struct)
+    _note_prep("single_launch", n, t0)
     return SingleLaunchInputs(arrays, bits, mask, n)
 
 
@@ -559,7 +658,9 @@ def _verify_single_prepared(si: SingleLaunchInputs, device=None) -> bool:
     """ONE counted dispatch of the single-launch body on host-staged inputs:
     on CUDA a replay of the size class's graph (captured on its first
     batch), elsewhere the body run eagerly. Both outputs must be 0-d bool
-    tensors; anything else raises. Errors propagate (no fallback)."""
+    tensors; anything else raises. Errors propagate (no fallback). A
+    False batch_valid (prep's checks on the device) counts as a rejected
+    batch."""
     dev = resolve_device(device)
     args = (*si.arrays, si.bits, si.mask)
     if dev.type == "cuda":
@@ -573,6 +674,8 @@ def _verify_single_prepared(si: SingleLaunchInputs, device=None) -> bool:
         if not isinstance(t, torch.Tensor) or t.shape != () or t.dtype != torch.bool:
             raise RuntimeError(f"single-launch {name} anomaly: "
                                f"{getattr(t, 'shape', None)}/{getattr(t, 'dtype', type(t))}")
+    if not bool(batch_valid):
+        _note_rejected()
     return bool(verdict)
 
 
@@ -590,10 +693,96 @@ def verify_sets_single_launch(sets: list[SignatureSet], device=None, coeff_bits=
 
 def verify_prepared(inputs, device=None) -> bool:
     """Verify a batch staged ahead: either the split schedule's
-    `build_device_inputs` tuple (tensors already on their device; one call
-    of the verify core here) or a `SingleLaunchInputs` (host bytes only; the
-    one single-launch dispatch runs here, on `device`)."""
+    `build_device_inputs` tuple (one call of the verify core here, on
+    `device` when given, else where the tensors are) or a
+    `SingleLaunchInputs` (host bytes only; the one single-launch dispatch
+    runs here, on `device`)."""
     if isinstance(inputs, SingleLaunchInputs):
         return _verify_single_prepared(inputs, device=device)
+    if device is not None:
+        dev = resolve_device(device)
+        inputs = tuple(tuple(c.to(dev) for c in x) if isinstance(x, tuple) else x.to(dev)
+                       for x in inputs)
     pk, h, sig, bits, mask = inputs
     return bool(device_batch_verify(pk, h, sig, bits, mask))
+
+
+# --- serving: the entry points of the verifier pool's lanes ------------------------
+
+
+def mesh_device_count() -> int:
+    """CUDA devices visible to this process (0 when enumeration fails): the
+    lane count `chain/bls/mesh.build_device_mesh` starts from."""
+    try:
+        return torch.cuda.device_count()
+    except Exception:
+        return 0
+
+
+def _lane_device(index: int | None, device=None) -> torch.device:
+    """The device of lane `index`: `device` when the caller names one (tests
+    pass "cpu"), else CUDA device `index` (the current one for None)."""
+    if device is not None:
+        return resolve_device(device)
+    return resolve_device("cuda" if index is None else torch.device("cuda", index))
+
+
+def prepare_inputs_for_lane(sets: list[SignatureSet], lane_index: int | None = None,
+                            device=None):
+    """The pipelined pool's prep stage: with the single-launch path active,
+    the host byte stage only (`prepare_single_launch_inputs`, zero
+    dispatches; a structural reject stages None); otherwise
+    `build_device_inputs` on the lane's device."""
+    dev = _lane_device(lane_index, device)
+    if single_launch_active(device=dev):
+        return prepare_single_launch_inputs(sets)
+    return build_device_inputs(sets, device=dev)
+
+
+def make_lane_verify_fn(device_index: int, device=None):
+    """`verify_signature_sets_device` pinned to one device: a lane's verify
+    callable."""
+    dev = _lane_device(device_index, device)
+
+    def lane_verify(sets: list[SignatureSet]) -> bool:
+        return verify_signature_sets_device(sets, device=dev)
+
+    lane_verify.__name__ = f"lane_verify_dev{device_index}"
+    return lane_verify
+
+
+def make_lane_verify_prepared_fn(device_index: int, device=None):
+    """`verify_prepared` pinned to one device: a lane's verify of inputs
+    staged by the pipelined pool (either staged shape)."""
+    dev = _lane_device(device_index, device)
+
+    def lane_verify_prepared(inputs) -> bool:
+        return verify_prepared(inputs, device=dev)
+
+    lane_verify_prepared.__name__ = f"lane_verify_prepared_dev{device_index}"
+    return lane_verify_prepared
+
+
+@functools.lru_cache(maxsize=1)
+def _warm_set() -> tuple[SignatureSet, ...]:
+    return tuple(make_synthetic_sets(1, seed=1))
+
+
+def _warm_inputs(size: int) -> tuple:
+    """Single-launch inputs of one size class for a capture (one valid set,
+    padded; the graph does not depend on the values)."""
+    parsed = _parse_host_arrays(list(_warm_set()), size)
+    pk_limbs, pk_sign, pk_struct, sig_limbs, sig_sign, sig_struct, lo, hi = parsed
+    bits, mask = _blinding_and_mask(1, size)
+    return (pk_limbs, pk_sign, sig_limbs, sig_sign, lo, hi, pk_struct & sig_struct, bits, mask)
+
+
+def warm_single_launch(classes, device=None) -> dict[int, dict]:
+    """Capture the single-launch graph of every class in `classes` (the
+    pool's `POOL_SIZE_CLASSES` for a serving process) that has none yet on
+    `device` (CUDA unless named), before a server takes
+    traffic: CUDA graphs do not outlive the process, so each process pays
+    the eager warm-up, capture and instantiation once per class. Returns
+    {class: {capture_s, instantiate_s, nodes, pool_bytes, rows}} for the
+    classes captured by this call."""
+    return _SINGLE_LAUNCH_GRAPHS.warm(resolve_device(device), classes, _warm_inputs)

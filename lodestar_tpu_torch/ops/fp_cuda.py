@@ -22,7 +22,10 @@ Each wrapper launches its kernel and raises if the build or the launch
 fails or the tensors are not on a CUDA device; it has no other path.
 ``ops/fp.py`` routes: CPU tensors to its plain versions, all others
 here. Each launch adds one to ``LAUNCHES[name]`` and to
-``ROWS[name][n]`` for its row count n.
+``ROWS[name][n]`` for its row count n, under one lock (launches come from
+several threads when a verifier pool serves), and, while the launching
+thread has a tally open (`tally`), to that tally too: a graph capture
+books only the launches its own thread recorded.
 
 Timing: ``chip_smoke.py`` phase 3 gives each kernel's device time at the
 row counts the main path launches it at, by capturing 50 launches in one
@@ -40,6 +43,7 @@ another checkout's copy of the source, to time it beside this one.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -54,6 +58,7 @@ __all__ = [
     "LAUNCHES",
     "ROWS",
     "reset_launches",
+    "tally",
     "build",
     "load_library",
     "launch",
@@ -89,14 +94,41 @@ _SHAPES = {
 }
 # launches of each kernel since the last reset (one per wrapper launch),
 # and the same launches counted by row count: ROWS[name][n]
-LAUNCHES = dict.fromkeys(KERNELS, 0)
-ROWS = {k: {} for k in KERNELS}
+LAUNCHES = dict.fromkeys(KERNELS, 0)  # guarded by: _count_lock
+ROWS = {k: {} for k in KERNELS}  # guarded by: _count_lock
+_count_lock = threading.Lock()
+_tls = threading.local()  # .tally: the open tally of this thread, or None
 
 
 def reset_launches() -> None:
-    for k in KERNELS:
-        LAUNCHES[k] = 0
-        ROWS[k].clear()
+    with _count_lock:
+        for k in KERNELS:
+            LAUNCHES[k] = 0
+            ROWS[k].clear()
+
+
+def _count(name: str, n: int) -> None:
+    """Book one launch of `name` on n rows (the one place a launch is
+    counted; also called by stub launches in tests)."""
+    with _count_lock:
+        LAUNCHES[name] += 1
+        ROWS[name][n] = ROWS[name].get(n, 0) + 1
+    t = getattr(_tls, "tally", None)
+    if t is not None:
+        t[name][n] = t[name].get(n, 0) + 1
+
+
+@contextlib.contextmanager
+def tally():
+    """Count this thread's launches apart: yields {name: {rows: count}},
+    filled by the launches the calling thread makes inside the block
+    (other threads' launches go to the process-wide counts only)."""
+    prev = getattr(_tls, "tally", None)
+    _tls.tally = t = {k: {} for k in KERNELS}
+    try:
+        yield t
+    finally:
+        _tls.tally = prev
 
 
 # --- build and load ------------------------------------------------------------
@@ -194,8 +226,7 @@ def launch(name: str, *args, lib=None):
         if rc != 0:
             msg = lib.lodestar_fp_error_string(rc).decode()
             raise RuntimeError(f"{name} kernel launch failed: {msg} ({rc})")
-        LAUNCHES[name] += 1
-        ROWS[name][n] = ROWS[name].get(n, 0) + 1
+        _count(name, n)
     return out.reshape(*lead, out_limbs)
 
 

@@ -41,6 +41,7 @@ copied to a device once each, on first use there.
 from __future__ import annotations
 
 import functools
+import threading
 import time
 
 import numpy as np
@@ -168,7 +169,8 @@ def _c(name: str, like: torch.Tensor) -> torch.Tensor:
 # --- the counted dispatch seam --------------------------------------------------
 
 _launch_counter = None  # a Counter-like object with .inc(), or None
-_launches_total = 0  # process-local monotonic count of stage calls
+_launches_total = 0  # process-local monotonic count of stage calls; guarded by: _count_lock
+_count_lock = threading.Lock()
 
 #: stage calls of one `prepare_arrays_fused`: the field stage, the
 #: subgroup stage and the hash finish, whatever the batch size
@@ -199,7 +201,8 @@ def _dispatch(program, *args, **kwargs):
     """Call one prep stage: the one place a stage call is counted (and
     timed, when launch telemetry is on)."""
     global _launches_total
-    _launches_total += 1
+    with _count_lock:
+        _launches_total += 1
     c = _launch_counter
     if c is not None:
         c.inc()

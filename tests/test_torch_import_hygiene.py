@@ -50,7 +50,10 @@ def test_every_module_imports_without_jax():
         [sys.executable, "-c", _SNIPPET], cwd=REPO, capture_output=True, text=True, timeout=300
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert "imported" in proc.stdout and int(proc.stdout.split()[-1]) >= 17  # ops.prep, telemetry
+    # ops.prep, telemetry, and the serving modules: chain.bls.{interface,mesh,pool},
+    # scheduler.{core,occupancy}, slo, tracing, logger, utils, offload.resilience,
+    # crypto.bls.pairing
+    assert "imported" in proc.stdout and int(proc.stdout.split()[-1]) >= 33
 
 
 def _imported_top_levels(path):
@@ -65,7 +68,11 @@ def _imported_top_levels(path):
 
 def test_no_module_imports_jax_or_the_jax_package():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) >= 19
+    assert len(files) >= 35
+    serving = {"chain/bls/pool.py", "chain/bls/mesh.py", "chain/bls/interface.py",
+               "scheduler/core.py", "scheduler/occupancy.py", "slo.py", "tracing.py",
+               "logger.py", "utils.py", "offload/resilience.py", "crypto/bls/pairing.py"}
+    assert serving <= {str(f.relative_to(PORT)) for f in files if PORT in f.parents}
     bad = [
         f"{f.relative_to(REPO)}:{line} imports {name}"
         for f in files
