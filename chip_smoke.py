@@ -90,16 +90,35 @@ Phases, in order; any failure exits non-zero and prints no result:
             pool (`pipeline="on"`) prints its `pipeline_stats()`. Every
             kernel must be launched by a replay while the pool serves, and
             none eagerly.
-8. check    a Miller loop + final exponentiation of two pairs on the card
+8. htr      the state hashTreeRoot (`state_transition/htr.py` over
+            `ssz/device_htr.py` and `ops/sha256.py`), on the card by default
+            (mode "auto"): each merkle level of at least 2048 pairs is one
+            replay of a CUDA graph captured per pow-2 pair class
+            (`graphs.GraphCache`), smaller levels are hashed with hashlib.
+            (a) `merkle_root` of 2^20 random chunks (bench.py's seed 0), one
+            graph for the tree: 1 warm-up with the capture, 5 timed, the
+            root equal to hashlib's; pair-hashes/s. (b) the collector on a
+            2^18-chunk stack with 4096 dirty chunks a flush, 5 flushes, each
+            on the device with at most 18 launches; chunks/s. (c) a mainnet
+            Capella BeaconState with 2^20 validators: a cold root, 3
+            epoch-boundary rounds, 3 slot-shaped rounds and a profiled epoch
+            round through `state_hash_tree_root`, each root equal to a second
+            tracker's on the same state hashed with hashlib only (no launch,
+            no replay); each round prints host prepare s, flush s, launches,
+            replays by pair class and captures (none after the cold root).
+            (d) each level graph's capture and instantiate s, nodes, pool MiB
+            and replay device time beside its bound; the profiled round's
+            device busy ms and idle share. Lines start `htr:`.
+9. check    a Miller loop + final exponentiation of two pairs on the card
             equals the CPU path (the plain versions) limb for limb, and
             equals e(P, Q) from the host pairing check on canonical values.
-9. report   one JSON line of kernels, the `nvidia-smi` line, and the last
+10. report  one JSON line of kernels, the `nvidia-smi` line, and the last
             line {"ok": true, "device": {...}}.
 
 With `--compare-parent DIR` (a checkout of an earlier commit, for example
 unpacked with `git archive` into a directory that .gitignore lists),
 phase 2 also builds DIR's kernel source, beside this one's, and a step
-between phases 8 and 9 checks each of its kernels against the plain
+between phases 9 and 10 checks each of its kernels against the plain
 version and times it beside this source's, in turns (parent, this, this,
 parent), at the row counts of N_TIMED and of one merged verify, each
 with its ms per verify.
@@ -1175,6 +1194,388 @@ def serve(dev, smi, main):
     return {"warm_s": warm_s, "per_class": per_class, "runs": runs, "replayed": replayed}
 
 
+# --- phase 8 -----------------------------------------------------------------
+# The state hashTreeRoot at BASELINE config 4's size. The HTR path has no
+# hand kernel (the JAX package's `ops/sha256.py` is plain XLA): each level
+# is one CUDA-graph replay of plain PyTorch word ops per pow-2 pair class.
+
+HTR_TREE_DEPTH = 20  # (a) merkle_root_device on 2^20 chunks
+HTR_TREE_TIMED = 5
+HTR_STACK_DEPTH = 18  # (b) the collector: a 2^18-chunk stack ...
+HTR_DIRTY = 4096  # ... and 4096 dirty chunks per flush
+HTR_FLUSHES = 5
+HTR_VALIDATORS = 1 << 20  # (c) a mainnet Capella BeaconState
+HTR_ROUNDS = 3  # epoch-boundary rounds, and as many slot-shaped rounds
+# The least int32 operations one pair hash needs (a 64-byte message, two
+# compressions), with a rotation as one funnel shift: a round is Sigma1
+# (3 rotations, 2 xors), Ch (3), T1 (4 adds), Sigma0 (5), Maj (4) and the
+# two new words (3 adds), 24; a scheduled word is sigma0 and sigma1 (5
+# each) and 3 adds, 13; the data block schedules 48 words, the padding
+# block's schedule is a constant; each compression ends with 8 adds.
+SHA_OPS_PER_PAIR = 2 * (64 * 24 + 8) + 48 * 13
+
+
+def htr_bound(pairs):
+    """(least ms for `pairs` pair hashes on the card, "bytes" or
+    "operations"): 64 bytes read and 32 written per pair."""
+    t_ops = pairs * SHA_OPS_PER_PAIR / INT32_MAD_PER_S * 1e3
+    t_bytes = pairs * 96 / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes"
+
+
+def host_root(chunks):
+    """Root of a complete tree of (N, 32) chunks with hashlib on the host."""
+    from lodestar_tpu_torch.ssz.hash import hash_nodes_cpu
+
+    level = chunks
+    while level.shape[0] > 1:
+        level = hash_nodes_cpu(level)
+    return level[0].tobytes()
+
+
+def htr_replays(dev):
+    """{pair class: replays} of the level graphs on `dev`."""
+    from lodestar_tpu_torch.ssz import device_htr as dh
+
+    return {size // 2: g.replays for (idx, size), g in sorted(dh.HTR_GRAPHS.graphs.items())
+            if idx == dev.index}
+
+
+def replays_since(before, dev):
+    now = htr_replays(dev)
+    return {c: now[c] - before.get(c, 0) for c in now if now[c] != before.get(c, 0)}
+
+
+def graph_info(g):
+    """A graph's capture and instantiate s, nodes and pool bytes (an HTR
+    graph launches no Fp kernel, so its rows are left out)."""
+    return {k: v for k, v in g.info().items() if k != "rows"}
+
+
+def replay_device_ms(g, reps=3):
+    """Device time of one replay of a captured graph (CUDA events)."""
+    import torch
+
+    with torch.cuda.stream(g.stream):
+        g.graph.replay()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            g.graph.replay()
+        end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def htr_tree(dev, smi):
+    """(a) `merkle_root_device` on 2^20 random chunks (bench.py's seed 0) as
+    one launch through `device_htr.merkle_root`: 1 warm-up with the capture,
+    then HTR_TREE_TIMED timed; the root equals hashlib's."""
+    import numpy as np
+    import torch
+
+    from lodestar_tpu_torch.ssz import device_htr as dh
+
+    n = 1 << HTR_TREE_DEPTH
+    words = np.random.default_rng(0).integers(0, 2**32, size=(n, 8), dtype=np.uint32)
+    chunks = np.frombuffer(words.astype(">u4").tobytes(), dtype=np.uint8).reshape(n, 32).copy()
+    t0 = time.perf_counter()
+    expect = host_root(chunks)
+    host_s = time.perf_counter() - t0
+    base = dh.launch_count()
+    t0 = time.perf_counter()
+    first = dh.merkle_root(chunks)
+    first_s = time.perf_counter() - t0
+    g = dh.ROOT_GRAPHS.graphs[(dev.index, n)]
+    times = []
+    for i in range(HTR_TREE_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        root = dh.merkle_root(chunks)
+        times.append(time.perf_counter() - t0)
+        if root != expect:
+            fail(f"htr: tree root of timed run {i} differs from hashlib's")
+    if first != expect:
+        fail("htr: the 2^20-chunk tree root differs from hashlib's")
+    if dh.launch_count() - base != 1 + HTR_TREE_TIMED or g.replays != 1 + HTR_TREE_TIMED:
+        fail(f"htr: the tree made {dh.launch_count() - base} launches and {g.replays} replays, "
+             f"not {1 + HTR_TREE_TIMED} of each")
+    mean = sum(times) / len(times)
+    dev_ms = replay_device_ms(g)
+    bound_ms, bound_by = htr_bound(n - 1)
+    out = {"chunks": n, "first_s": first_s, "times_s": times, "pair_hashes_per_s": (n - 1) / mean,
+           "replay_device_ms": dev_ms, "device_pair_hashes_per_s": (n - 1) / dev_ms * 1e3,
+           "bound_ms": bound_ms, "bound_by": bound_by, "hashlib_s": host_s, **graph_info(g)}
+    say(f"htr: (a) tree of {n} chunks == hashlib root; first call {first_s:.2f} s (eager "
+        f"warm-up, capture {g.capture_s:.2f} s, instantiate {g.instantiate_s:.2f} s, one "
+        f"replay); {g.nodes} nodes; pool {g.pool_bytes / 2**20:.1f} MiB")
+    say(f"htr: (a) x{HTR_TREE_TIMED} bytes in to root out: {', '.join(f'{t:.4f}' for t in times)} "
+        f"s, {(n - 1) / mean:.4g} pair-hashes/s; replay alone {dev_ms:.2f} ms device, "
+        f"{out['device_pair_hashes_per_s']:.4g} pair-hashes/s; bound {bound_ms:.3f} ms "
+        f"({bound_by}); hashlib on one host core {host_s:.2f} s, {(n - 1) / host_s:.4g}/s; "
+        f"on {smi}")
+    return out
+
+
+def htr_collector(dev, smi):
+    """(b) the collector at the state_htr_rate shape: a 2^18-chunk stack, 4096
+    dirty chunks a flush, HTR_FLUSHES flushes, each on the device with at
+    most one launch per level; the stack's root equals hashlib's."""
+    import numpy as np
+
+    from lodestar_tpu_torch.ssz import device_htr as dh
+
+    n = 1 << HTR_STACK_DEPTH
+    rng = np.random.default_rng(51)
+    levels = [np.zeros((n >> k, 32), dtype=np.uint8) for k in range(HTR_STACK_DEPTH + 1)]
+    levels[0][:] = rng.integers(0, 256, size=(n, 32), dtype=np.uint8)
+    captures = dh.HTR_GRAPHS.captures
+    cold = dh.DirtyCollector()
+    cold.add_stack_job(levels, range(n))
+    t0 = time.perf_counter()
+    cold_stats = cold.flush()
+    cold_s = time.perf_counter() - t0
+    if levels[-1][0].tobytes() != host_root(levels[0]):
+        fail("htr: the collector's cold stack root differs from hashlib's")
+    say(f"htr: (b) cold flush of {n} chunks: {cold_s:.2f} s, {cold_stats['launches']} launches, "
+        f"{dh.HTR_GRAPHS.captures - captures} graphs captured")
+    captures = dh.HTR_GRAPHS.captures
+    times, launches = [], []
+    before = htr_replays(dev)
+    for it in range(HTR_FLUSHES):
+        dirty = rng.choice(n, size=HTR_DIRTY, replace=False)
+        levels[0][dirty] ^= np.uint8(1 + it)
+        coll = dh.DirtyCollector()
+        coll.add_stack_job(levels, dirty)
+        t0 = time.perf_counter()
+        stats = coll.flush()
+        times.append(time.perf_counter() - t0)
+        launches.append(stats["launches"])
+        if stats["backend"] != "device" or not 0 < stats["launches"] <= HTR_STACK_DEPTH:
+            fail(f"htr: collector flush {it}: {stats}")
+    if levels[-1][0].tobytes() != host_root(levels[0]):
+        fail("htr: the collector's stack root differs from hashlib's after the flushes")
+    if dh.HTR_GRAPHS.captures != captures:
+        fail("htr: the collector's timed flushes captured a graph")
+    mean = sum(times) / len(times)
+    replays = replays_since(before, dev)
+    say(f"htr: (b) {HTR_FLUSHES} flushes of {HTR_DIRTY} dirty chunks: "
+        f"{', '.join(f'{t:.4f}' for t in times)} s, {HTR_DIRTY / mean:.4g} chunks/s; launches "
+        f"{launches}, replays by pair class {replays}; root == hashlib's; on {smi}")
+    return {"chunks": n, "dirty": HTR_DIRTY, "times_s": times, "chunks_per_s": HTR_DIRTY / mean,
+            "launches": launches, "replays_by_class": replays, "cold_s": cold_s}
+
+
+def htr_state(dev, smi):
+    """(c) a mainnet Capella BeaconState of HTR_VALIDATORS validators, filled
+    as `epoch_htr_replay` fills it: a cold root, HTR_ROUNDS epoch-boundary
+    rounds, HTR_ROUNDS slot-shaped rounds and one profiled epoch round,
+    each root through `state_hash_tree_root` equal to a second tracker's on
+    the same state that hashes on the host only (hashlib, no launch)."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from lodestar_tpu_torch import params
+    from lodestar_tpu_torch.ssz import device_htr as dh
+    from lodestar_tpu_torch.ssz import hash as ssz_hash
+    from lodestar_tpu_torch.state_transition import StateRootTracker, state_hash_tree_root
+    from lodestar_tpu_torch.types import ssz_types
+
+    p = params.MAINNET
+    t = ssz_types(p)
+    n = HTR_VALIDATORS
+    t0 = time.perf_counter()
+    state = t.capella.BeaconState.default()
+    vs = []
+    for i in range(n):
+        v = t.Validator.default()
+        v.pubkey = (i.to_bytes(8, "little") * 6)[:48]
+        v.effective_balance = 32_000_000_000
+        v.exit_epoch = 2**64 - 1
+        v.withdrawable_epoch = 2**64 - 1
+        vs.append(v)
+    state.validators = vs
+    state.balances = [32_000_000_000] * n
+    state.previous_epoch_participation = [1] * n
+    state.current_epoch_participation = [3] * n
+    state.inactivity_scores = [0] * n
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(52)
+
+    def epoch_mutation(round_):
+        state.slot = int(state.slot) + p.SLOTS_PER_EPOCH
+        state.balances = [int(x) for x in rng.integers(31_000_000_000, 33_000_000_000, size=n)]
+        state.previous_epoch_participation = state.current_epoch_participation
+        state.current_epoch_participation = [0] * n
+        state.randao_mixes[round_ % len(state.randao_mixes)] = bytes(
+            rng.integers(0, 256, size=32, dtype=np.uint8))
+        state.slashings[round_ % len(state.slashings)] = int(rng.integers(0, 2**40))
+        for i in rng.integers(0, n, size=8):
+            state.validators[int(i)].effective_balance = int(rng.integers(0, 2**40))
+
+    def slot_mutation(round_):
+        state.slot = int(state.slot) + 1
+        for i in rng.integers(0, n, size=4):
+            state.balances[int(i)] = int(rng.integers(31_000_000_000, 33_000_000_000))
+        k = int(state.slot) % p.SLOTS_PER_HISTORICAL_ROOT
+        state.state_roots[k] = bytes(rng.integers(0, 256, size=32, dtype=np.uint8))
+        state.block_roots[k] = bytes(rng.integers(0, 256, size=32, dtype=np.uint8))
+        state.validators[int(rng.integers(0, n))].effective_balance = int(rng.integers(0, 2**40))
+
+    @contextlib.contextmanager
+    def host_only():
+        """The reference: mode off and every level under the device floor, so
+        every hash is hashlib's; no launch and no replay may happen."""
+        prev_mode = dh.configure_device_htr(mode="off")
+        prev_min = ssz_hash.DEVICE_MIN_PAIRS
+        ssz_hash.DEVICE_MIN_PAIRS = 1 << 62
+        launches, replays = dh.launch_count(), htr_replays(dev)
+        try:
+            yield
+        finally:
+            ssz_hash.DEVICE_MIN_PAIRS = prev_min
+            dh.configure_device_htr(mode=prev_mode)
+        if dh.launch_count() != launches or htr_replays(dev) != replays:
+            fail("htr: the host-only reference tracker launched on the device")
+
+    flushes = []  # every collector flush's stats, in order
+    real_flush = dh.DirtyCollector.flush
+
+    def logged_flush(self):
+        stats = real_flush(self)
+        flushes.append(stats)
+        return stats
+
+    ref = StateRootTracker(state.type)
+    rounds = []
+
+    def root_round(label, mutate=None, run=None):
+        if mutate is not None:
+            mutate()
+        del flushes[:]
+        launches, replays, captures = dh.launch_count(), htr_replays(dev), dh.HTR_GRAPHS.captures
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if run is None:
+            root = state_hash_tree_root(state)
+            extra = {}
+        else:
+            root, extra = run()
+        wall = time.perf_counter() - t0
+        (stats,) = flushes
+        launched = dh.launch_count() - launches
+        rec = {"round": label, "wall_s": wall, "flush_s": stats["seconds"],
+               "prepare_s": wall - stats["seconds"], "levels": stats["levels"],
+               "dirty_chunks": stats["dirty_chunks"], "flush_launches": stats["launches"],
+               "prepare_launches": launched - stats["launches"],
+               "replays_by_class": replays_since(replays, dev),
+               "captures": dh.HTR_GRAPHS.captures - captures, **extra}
+        with host_only():
+            t0 = time.perf_counter()
+            want, _ = ref.root(state)
+            rec["reference_s"] = time.perf_counter() - t0
+        if root != want:
+            fail(f"htr: the {label} root differs from the host-only tracker's")
+        if stats["backend"] != "device" or stats["launches"] > stats["levels"]:
+            fail(f"htr: the {label} flush: {stats}")
+        # the validators' element re-rooting launches once per level of its
+        # container tree at most: 3 field levels and the pubkey's
+        if rec["prepare_launches"] > 4:
+            fail(f"htr: the {label} round's prepare made {rec['prepare_launches']} launches")
+        if sum(rec["replays_by_class"].values()) != launched:
+            fail(f"htr: the {label} round made {launched} launches but replays "
+                 f"{rec['replays_by_class']}")
+        say(f"htr: (c) {label}: root == host tracker's; wall {wall:.3f} s = host prepare "
+            f"{rec['prepare_s']:.3f} s + flush {stats['seconds']:.3f} s; {stats['levels']} "
+            f"levels, {stats['dirty_chunks']} dirty chunks; launches {stats['launches']} in the "
+            f"flush, {rec['prepare_launches']} in prepare; replays by pair class "
+            f"{rec['replays_by_class']}; captures {rec['captures']}; host-only reference "
+            f"{rec['reference_s']:.3f} s")
+        rounds.append(rec)
+        return rec
+
+    dh.DirtyCollector.flush = logged_flush
+    try:
+        say(f"htr: (c) mainnet Capella BeaconState with {n} validators built in {setup_s:.1f} s")
+        cold = root_round("cold")
+        for r in range(HTR_ROUNDS):
+            rec = root_round(f"epoch {r + 1}", lambda r=r: epoch_mutation(r + 1))
+            if rec["flush_launches"] == 0:
+                fail(f"htr: epoch round {r + 1} made no device launch")
+        for r in range(HTR_ROUNDS):
+            root_round(f"slot {r + 1}", lambda r=r: slot_mutation(r + 1))
+
+        def run_profiled():
+            root, prof_wall_ms, events = profiled(lambda: state_hash_tree_root(state))
+            return root, {"prof_wall_ms": prof_wall_ms, "busy_ms": busy_ms(events),
+                          "device_events": len(device_events(events))}
+
+        prof = root_round("epoch profiled", lambda: epoch_mutation(HTR_ROUNDS + 1), run_profiled)
+    finally:
+        dh.DirtyCollector.flush = real_flush
+    later = [r for r in rounds if r["round"] != "cold"]
+    if any(r["captures"] for r in later):
+        fail(f"htr: graphs were captured after the cold root: {[r['captures'] for r in later]}")
+    epoch_wall = [r["wall_s"] for r in rounds if r["round"].startswith("epoch ")
+                  and r is not prof]
+    mean_ms = 1e3 * sum(epoch_wall) / len(epoch_wall)
+    if prof["busy_ms"] == 0:
+        say("htr: (d) profiled epoch round: device busy time not measured (no device events)")
+    else:
+        say(f"htr: (d) profiled epoch round: device busy {prof['busy_ms']:.1f} ms over "
+            f"{prof['device_events']} device events; idle {100 * (1 - prof['busy_ms'] / mean_ms):.1f}% "
+            f"of an unprofiled epoch round's {mean_ms:.1f} ms ({100 * (1 - prof['busy_ms'] / prof['prof_wall_ms']):.1f}% "
+            f"of the profiled {prof['prof_wall_ms']:.1f} ms) on {smi}")
+    prof["idle"] = 1 - prof["busy_ms"] / mean_ms if prof["busy_ms"] else None
+    return {"validators": n, "setup_s": setup_s, "rounds": rounds,
+            "cold_captures": cold["captures"]}
+
+
+def htr_graphs(dev, smi):
+    """(d) every level graph captured: capture and instantiate s, nodes,
+    pool MiB, one replay's device time beside its bound."""
+    from lodestar_tpu_torch.ssz import device_htr as dh
+
+    out = {}
+    for (idx, size), g in sorted(dh.HTR_GRAPHS.graphs.items()):
+        if idx != dev.index:
+            continue
+        pairs = size // 2
+        ms = replay_device_ms(g)
+        bound_ms, bound_by = htr_bound(pairs)
+        out[pairs] = {**graph_info(g), "replay_device_ms": ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "replays": g.replays}
+        say(f"htr: (d) pair class {pairs}: capture {g.capture_s:.2f} s, instantiate "
+            f"{g.instantiate_s:.2f} s, {g.nodes} nodes, pool {g.pool_bytes / 2**20:.1f} MiB, "
+            f"replay {ms:.3f} ms device (bound {bound_ms:.4f} ms, {bound_by}), "
+            f"{g.replays} replays")
+    pools = sum(c["pool_bytes"] for c in out.values()) + sum(
+        g.pool_bytes for (idx, _), g in dh.ROOT_GRAPHS.graphs.items() if idx == dev.index)
+    say(f"htr: (d) {len(out)} level graphs and {len(dh.ROOT_GRAPHS.graphs)} tree graph: pools "
+        f"{pools / 2**20:.1f} MiB in all; card memory reserved "
+        f"{__import__('torch').cuda.memory_reserved(dev) / 2**30:.2f} GiB on {smi}")
+    return {"classes": out, "pools_bytes": pools}
+
+
+def htr(dev, smi):
+    """Phase 8: the state hashTreeRoot on the card. Launch counts and
+    replays are read around every part; returns their figures."""
+    from lodestar_tpu_torch.ssz import device_htr as dh
+
+    if not dh.device_htr_active():
+        fail("htr: device hashing is not the default on the card")
+    dh.configure_device_htr(device=dev)
+    t0 = time.perf_counter()
+    out = {"tree": htr_tree(dev, smi), "collector": htr_collector(dev, smi),
+           "state": htr_state(dev, smi), "graphs": htr_graphs(dev, smi)}
+    out["phase_s"] = time.perf_counter() - t0
+    say(f"htr: phase {out['phase_s']:.1f} s")
+    return out
+
+
 # --- comparison with an earlier commit's kernels (--compare-parent) -----------
 
 
@@ -1219,7 +1620,7 @@ def compare_kernels(parent, main_run, dev, smi):
     return result
 
 
-# --- phase 8 -----------------------------------------------------------------
+# --- phase 9 -----------------------------------------------------------------
 
 
 def check_against_cpu(dev):
@@ -1304,12 +1705,14 @@ def main():
     many_s = verify_many(dev, smi, main_run)
     # 7. serving through the verifier pool
     served = serve(dev, smi, main_run)
-    # 8. check against the CPU path
+    # 8. the state hashTreeRoot
+    hashed = htr(dev, smi)
+    # 9. check against the CPU path
     check_against_cpu(dev)
     if parent is not None:
         compare_kernels(parent, main_run, dev, smi)
 
-    # 9. report
+    # 10. report
     from lodestar_tpu_torch.models import batch_verify as bv
 
     runs = {"verify": main_run["per_verify_rows"], "prep": main_run["per_prep_rows"]}
@@ -1365,6 +1768,7 @@ def main():
         "per_class": {size: {k: v for k, v in c.items() if k != "launches"}
                       for size, c in served["per_class"].items()},
         "runs": served["runs"]}))
+    say("htr: " + json.dumps(hashed))
     say(f"result: {main_run['sigs_per_s']:.1f} sigs/s verify-only, "
         f"{main_run['bytes_to_verdict_sigs_per_s']:.1f} sigs/s bytes to verdict ({merged}-set "
         f"merged batch, split schedule, device prep {main_run['prep_s']:.3f} s); single launch "

@@ -2,7 +2,8 @@
 
 * Every module of `lodestar_tpu_torch` imports in a fresh interpreter where
   `jax` and `lodestar_tpu` cannot be imported, and importing builds and
-  loads no kernel and initializes no CUDA context.
+  loads no kernel, builds no graph (HTR graphs included), makes no SHA-256
+  constant a tensor and initializes no CUDA context.
 * No module of the port, and not `chip_smoke.py`, imports `jax` or
   `lodestar_tpu` (checked on the syntax tree; the top-level name is
   compared exactly, since `lodestar_tpu_torch` starts with the same
@@ -40,6 +41,13 @@ assert prep._const_on.cache_info().currsize == 0, "a prep constant was put on a 
 from lodestar_tpu_torch.models import batch_verify
 assert batch_verify._neg_g1_on.cache_info().currsize == 0, "-g1 was put on a device at import"
 assert not batch_verify._SINGLE_LAUNCH_GRAPHS.graphs, "a graph was captured at import"
+from lodestar_tpu_torch.ssz import device_htr
+from lodestar_tpu_torch.ops import sha256
+assert not device_htr.HTR_GRAPHS.graphs and not device_htr.ROOT_GRAPHS.graphs, \
+    "an HTR graph was built at import"
+assert device_htr.launch_count() == 0, "an HTR level was launched at import"
+assert not [k for k, v in vars(sha256).items() if isinstance(v, torch.Tensor)], \
+    "a SHA-256 constant was made a tensor at import"
 assert not torch.cuda.is_initialized(), "CUDA was initialized at import"
 print("imported", len(names))
 """
@@ -52,8 +60,9 @@ def test_every_module_imports_without_jax():
     assert proc.returncode == 0, proc.stderr[-3000:]
     # ops.prep, telemetry, and the serving modules: chain.bls.{interface,mesh,pool},
     # scheduler.{core,occupancy}, slo, tracing, logger, utils, offload.resilience,
-    # crypto.bls.pairing
-    assert "imported" in proc.stdout and int(proc.stdout.split()[-1]) >= 33
+    # crypto.bls.pairing; and the HTR slice: ops.sha256, params, types, ssz and its
+    # six modules, state_transition and its htr
+    assert "imported" in proc.stdout and int(proc.stdout.split()[-1]) >= 45
 
 
 def _imported_top_levels(path):
@@ -68,11 +77,14 @@ def _imported_top_levels(path):
 
 def test_no_module_imports_jax_or_the_jax_package():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) >= 35
+    assert len(files) >= 47
     serving = {"chain/bls/pool.py", "chain/bls/mesh.py", "chain/bls/interface.py",
                "scheduler/core.py", "scheduler/occupancy.py", "slo.py", "tracing.py",
                "logger.py", "utils.py", "offload/resilience.py", "crypto/bls/pairing.py"}
-    assert serving <= {str(f.relative_to(PORT)) for f in files if PORT in f.parents}
+    htr = {"ops/sha256.py", "params/__init__.py", "types/__init__.py", "ssz/__init__.py",
+           "ssz/hash.py", "ssz/merkle.py", "ssz/types.py", "ssz/batch.py", "ssz/tree.py",
+           "ssz/device_htr.py", "state_transition/__init__.py", "state_transition/htr.py"}
+    assert serving | htr <= {str(f.relative_to(PORT)) for f in files if PORT in f.parents}
     bad = [
         f"{f.relative_to(REPO)}:{line} imports {name}"
         for f in files
