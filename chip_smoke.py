@@ -109,16 +109,39 @@ Phases, in order; any failure exits non-zero and prints no result:
             (d) each level graph's capture and instantiate s, nodes, pool MiB
             and replay device time beside its bound; the profiled round's
             device busy ms and idle share. Lines start `htr:`.
-9. check    a Miller loop + final exponentiation of two pairs on the card
+9. kzg      KZG blob commitments and proof checks (`crypto/kzg.py`) at a
+            mainnet block, on the card by default: counts and replays
+            reset just before and read just after; every kernel must have
+            launched, and every launch (graph or eager) must be at a row
+            count phase 3 checked (KZG_ROWS). (b) the trusted setup's load
+            s and the upload s of its limbs. (c) a random mainnet blob
+            (numpy seed KZG_SEED): 1 warm-up with the MSM graph's capture
+            (class 4,096), KZG_TIMED timed commitments, equal to the host
+            oracle's bytes (`oracle=True`, once, untimed) and a constant
+            blob's equal to [c]G1; capture and instantiate s, nodes, pool
+            MiB, the replay's device ms beside its bound, commitments/s,
+            Fp launches per replay. (d) opening checks through the
+            pairing-check graph (class 2): `verify_kzg_proof` True for a
+            linear blob's opening and False for y + 1,
+            `verify_blob_kzg_proof` True and False, each verdict equal to
+            the oracle's `pairings_are_one` on the same pairs; the replay's
+            device ms, nodes, capture s and one profiled check's idle
+            share. (e) a block of MAX_BLOBS_PER_BLOCK blobs: the aggregate proof (5
+            MSM replays), its checks (right order, swapped commitments,
+            swapped blobs, empty sidecars), `validate_blobs_sidecar`
+            passing and raising KzgError on a wrong slot and an infinity
+            proof, the check's wall s split into host s and replay s; no
+            capture after (c) and (d). Lines start `kzg:`.
+10. check   a Miller loop + final exponentiation of two pairs on the card
             equals the CPU path (the plain versions) limb for limb, and
             equals e(P, Q) from the host pairing check on canonical values.
-10. report  one JSON line of kernels, the `nvidia-smi` line, and the last
+11. report  one JSON line of kernels, the `nvidia-smi` line, and the last
             line {"ok": true, "device": {...}}.
 
 With `--compare-parent DIR` (a checkout of an earlier commit, for example
 unpacked with `git archive` into a directory that .gitignore lists),
 phase 2 also builds DIR's kernel source, beside this one's, and a step
-between phases 9 and 10 checks each of its kernels against the plain
+between phases 10 and 11 checks each of its kernels against the plain
 version and times it beside this source's, in turns (parent, this, this,
 parent), at the row counts of N_TIMED and of one merged verify, each
 with its ms per verify.
@@ -164,10 +187,18 @@ POOL_ROWS = (1, 2, 3, 4, 6, 8, 9, 12, 16, 18, 24, 27, 32, 34, 36, 48, 51, 54, 64
              2050, 2322, 2340, 2560, 3072, 3075, 3084, 3096, 3456, 3840, 4096, 4626, 4644,
              5120, 6144, 6156, 6168, 6912, 7680, 9234, 9252, 10240, 12288, 12300, 12312, 13824,
              15360, 18450, 18468, 20480, 24600, 27648, 30720, 36900, 40960, 55296, 61440)
+# KZG_ROWS: every row count the KZG graphs launch a kernel at (the MSM's at
+# class 4,096: the double-and-add on 4,096 rows and the tree fold's 2,048 down
+# to 1; the pairing check's at class 2), counted on the CPU by
+# `kzg_rows_on_meta`; phase 9 fails if a graph or an eager launch of the KZG
+# path uses one not checked here.
+KZG_ROWS = (1, 2, 4, 6, 8, 9, 12, 16, 18, 24, 32, 36, 48, 54, 64, 72, 128, 256, 512, 1024, 2048,
+            4096)
 N_TIMED = (1, 12, 36, 2048, 4096, 6147, 20480, 21120, 21121, 24588, 30720, 73764, 110646,
            122880)
-N_KERNEL_CHECK = tuple(sorted({*N_TIMED, *PREP_ROWS, *MANY_ROWS, *POOL_ROWS, 2, 15, 16, 17, 31, 32, 33, 63,
-                               64, 65, 511, 512, 513, 2049, 2112, 2113, 4098}))
+N_KERNEL_CHECK = tuple(sorted({*N_TIMED, *PREP_ROWS, *MANY_ROWS, *POOL_ROWS, *KZG_ROWS, 2, 15, 16,
+                               17, 31, 32, 33, 63, 64, 65, 511, 512, 513, 2049, 2112, 2113,
+                               4098}))
 N_COMPARE = 110646
 BATCH = 128  # sets per gossip job
 MERGE_JOBS = 16  # jobs merged into one RLC batch
@@ -269,13 +300,20 @@ def graph_ms(fn, iters=50, replays=5):
 
 def rows_on_meta(size):
     """{kernel: {rows: launches}} of the single-launch body at one size
-    class, counted on the CPU with no card: the body runs on meta tensors
-    (shapes only) with the kernel wrappers' launch replaced by a stub that
-    books the row count and returns an empty meta result."""
+    class, counted on the CPU with no card (`count_on_meta`)."""
+    from lodestar_tpu_torch.models import batch_verify as bv
+
+    return count_on_meta(bv._single_launch_verify, bv._warm_inputs(size))
+
+
+def count_on_meta(body, arrays):
+    """{kernel: {rows: launches}} of `body` on `arrays`, counted on the CPU
+    with no card: the body runs on meta tensors (shapes only) with the
+    kernel wrappers' launch replaced by a stub that books the row count
+    and returns an empty meta result."""
     import numpy as np
     import torch
 
-    from lodestar_tpu_torch.models import batch_verify as bv
     from lodestar_tpu_torch.ops import fp_cuda
 
     rows = {k: {} for k in fp_cuda.KERNELS}
@@ -288,8 +326,7 @@ def rows_on_meta(size):
 
     real, fp_cuda.launch = fp_cuda.launch, stub
     try:
-        bv._single_launch_verify(*(torch.as_tensor(np.ascontiguousarray(a)).to("meta")
-                                   for a in bv._warm_inputs(size)))
+        body(*(torch.as_tensor(np.ascontiguousarray(a)).to("meta") for a in arrays))
     finally:
         fp_cuda.launch = real
     return rows
@@ -647,21 +684,52 @@ def verify_by_stage(pk, h, sig, bits, mask):
 STAGE_MARK = "prep stage: "  # the record_function name of a prep stage
 
 
+class TraceEvent:
+    """One event of a profiler trace: its name, whether it ran on the card,
+    its start and end in microseconds from the trace's start, its host
+    thread, and for a host event whether it is top-level (no enclosing
+    host event on its thread but a prep stage's window)."""
+
+    __slots__ = ("name", "cuda", "start", "end", "thread", "top")
+
+
+def trace_events(prof):
+    """The events of a finished `torch.profiler.profile`, read straight from
+    Kineto's results. Building the profiler's own event tree
+    (`prof.events()`) took ~100 s for the ~1.2 M events of a 2048-set split
+    verify on the H100 machine's host (a probe of phase 5, PR 8)."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    results = prof.profiler.kineto_results
+    origin = results.trace_start_ns()
+    events = []
+    for k in results.events():
+        e = TraceEvent()
+        e.name, e.cuda, e.thread, e.top = k.name(), k.device_type() == cuda, k.start_thread_id(), False
+        e.start = (k.start_ns() - origin) / 1e3
+        e.end = e.start + k.duration_ns() / 1e3
+        events.append(e)
+    stack = []  # the enclosing host events of the current one
+    for e in sorted((e for e in events if not e.cuda), key=lambda e: (e.thread, e.start, -e.end)):
+        while stack and (stack[-1].thread != e.thread or stack[-1].end <= e.start):
+            stack.pop()
+        e.top = not stack or stack[-1].name.startswith(STAGE_MARK)
+        stack.append(e)
+    return events
+
+
 def device_events(events):
     """The trace's device work: its CUDA events but the GPU-side copies of
     the prep stages' `record_function` ranges, which span whole stages."""
-    import torch
-
-    return [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-            and not e.name.startswith(STAGE_MARK)]
+    return [e for e in events if e.cuda and not e.name.startswith(STAGE_MARK)]
 
 
 def busy_ms(events, lo=float("-inf"), hi=float("inf")):
     """Union of the device work intervals of a profiler trace, clipped to
     the window [lo, hi] (profiler microseconds), in ms."""
-    spans = sorted((max(e.time_range.start, lo), min(e.time_range.end, hi))
-                   for e in device_events(events)
-                   if e.time_range.end > lo and e.time_range.start < hi)
+    spans = sorted((max(e.start, lo), min(e.end, hi)) for e in device_events(events)
+                   if e.end > lo and e.start < hi)
     busy, cur_s, cur_e = 0, None, None
     for s, e in spans:
         if cur_e is None or s > cur_e:
@@ -748,7 +816,7 @@ def profiled(run):
         res = run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    return res, wall_ms, prof.events()
+    return res, wall_ms, trace_events(prof)
 
 
 def report_profile(label, events, prof_wall_ms, wall_ms, per_ms, smi):
@@ -757,11 +825,7 @@ def report_profile(label, events, prof_wall_ms, wall_ms, per_ms, smi):
     kernels, and each Fp kernel's profiler ms beside launches x graph time
     (`per_ms`). Returns {kernel: profiler ms}, or None values when the
     trace holds no device events."""
-    import torch
-
-    host_ops = sum(1 for e in events if e.device_type == torch.autograd.DeviceType.CPU
-                   and e.name.startswith("aten::")
-                   and (e.cpu_parent is None or e.cpu_parent.name.startswith(STAGE_MARK)))
+    host_ops = sum(1 for e in events if not e.cuda and e.top and e.name.startswith("aten::"))
     say(f"profile: profiled {label} {prof_wall_ms:.1f} ms wall (profiler on), "
         f"{host_ops} top-level aten calls")
     busy = busy_ms(events)
@@ -778,7 +842,7 @@ def report_profile(label, events, prof_wall_ms, wall_ms, per_ms, smi):
     for e in device_events(events):
         k = by_kernel.setdefault(e.name, [0, 0.0])
         k[0] += 1
-        k[1] += (e.time_range.end - e.time_range.start) / 1e3
+        k[1] += (e.end - e.start) / 1e3
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])
     for name, (count, ms) in top[:8]:
         say(f"profile: {label} kernel {ms:9.2f} ms {count:7d}x  {name[:90]}")
@@ -848,11 +912,8 @@ def prep_stage_busy(events, stages, smi):
     share of the same stage's unprofiled wall time. Not measured when the
     stages' busy times do not add up to the whole trace's (the windows and
     the device events would then not share one clock)."""
-    import torch
-
-    windows = {e.name[len(STAGE_MARK):]: (e.time_range.start, e.time_range.end)
-               for e in events if e.device_type == torch.autograd.DeviceType.CPU
-               and e.name.startswith(STAGE_MARK)}
+    windows = {e.name[len(STAGE_MARK):]: (e.start, e.end)
+               for e in events if not e.cuda and e.name.startswith(STAGE_MARK)}
     busy = {name: busy_ms(events, *windows[name]) for name in stages if name in windows}
     total = busy_ms(events)
     if len(busy) != len(stages) or abs(sum(busy.values()) - total) > 0.05 * total:
@@ -1576,6 +1637,304 @@ def htr(dev, smi):
     return out
 
 
+# --- phase 9 -----------------------------------------------------------------
+# KZG blob commitments and proof checks (`crypto/kzg.py`) at a mainnet block:
+# MAX_BLOBS_PER_BLOCK = 4 blobs of FIELD_ELEMENTS_PER_BLOB = 4,096 elements.
+# The commitment's 4,096-point G1 MSM and every pairing-product check are one
+# CUDA-graph replay each (classes 4,096 and 2), on the five Fp kernels.
+
+KZG_TIMED = 5  # timed commitments after the warm-up
+KZG_SEED = 4844
+
+
+def kzg_rows_on_meta():
+    """{"msm": ..., "check": ...}: the row counts of the two KZG graph bodies
+    at their classes (4,096 setup points and 255 bits; 2 pairs), counted on
+    the CPU by `count_on_meta` (~75 s)."""
+    import numpy as np
+
+    from lodestar_tpu_torch.crypto import kzg as K
+    from lodestar_tpu_torch.ops import fp, msm
+
+    n = K.FIELD_ELEMENTS_PER_BLOB_MAINNET
+    limbs = np.zeros((n, fp.LIMBS), np.int32)
+    bits = np.zeros((n, K.SCALAR_BITS), np.int32)
+    g1, g2 = np.zeros((2, fp.LIMBS), np.int32), np.zeros((2, 2, fp.LIMBS), np.int32)
+    return {"msm": count_on_meta(msm.msm_g1_body, (limbs, limbs, bits)),
+            "check": count_on_meta(K._pairing_graph_body, (g1, g1, g2, g2, np.ones(2, bool)))}
+
+
+def random_blob(rng):
+    """A mainnet blob: 4,096 little-endian field elements below r."""
+    from lodestar_tpu_torch.crypto import kzg as K
+
+    return b"".join((int.from_bytes(rng.bytes(32), "little") % K.R).to_bytes(32, "little")
+                    for _ in range(K.FIELD_ELEMENTS_PER_BLOB_MAINNET))
+
+
+def replay_bound(g):
+    """(least ms of one replay of graph `g` on the card, "bytes" or
+    "operations"): the int32 multiply-adds of its Fp launches
+    ({kernel: {rows: launches}}, counted at capture) over the card's rate,
+    or its inputs read once and outputs written once over HBM's."""
+    macs = sum(c * n * work_per_row(k)[0] for k, by in g.rows.items() for n, c in by.items())
+    nbytes = sum(t.numel() * t.element_size() for t in (*g.inputs, *g.outputs))
+    t_ops, t_bytes = macs / INT32_MAD_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes"
+
+
+def dispatch_seconds(programs, since):
+    """Wall seconds of the counted dispatches of `programs` recorded by the
+    launch telemetry after sequence number `since`."""
+    from lodestar_tpu_torch import telemetry
+
+    with telemetry._lock:
+        return sum(e["seconds"] for e in telemetry._ledger
+                   if e["seq"] > since and e["program"] in programs)
+
+
+def kzg(dev, smi):
+    """Phase 9: KZG at a mainnet block of MAX_BLOBS_PER_BLOCK blobs. Launch counts and
+    replays are reset just before the path and read just after; every
+    kernel must have been launched. Lines start `kzg:`."""
+    import numpy as np
+    import torch
+
+    from lodestar_tpu_torch import graphs, params, telemetry
+    from lodestar_tpu_torch.crypto import kzg as K
+    from lodestar_tpu_torch.crypto.bls import curve as C
+    from lodestar_tpu_torch.crypto.bls.pairing import pairings_are_one
+    from lodestar_tpu_torch.crypto.bls.serdes import g1_to_bytes
+    from lodestar_tpu_torch.ops import fp_cuda
+
+    t_phase = time.perf_counter()
+    n = params.MAINNET.FIELD_ELEMENTS_PER_BLOB
+    n_blobs = params.MAINNET.MAX_BLOBS_PER_BLOCK
+    rng = np.random.default_rng(KZG_SEED)
+    out = {}
+    fp_cuda.reset_launches()
+    graphs.reset_replayed()  # the KZG path's run starts here
+
+    # (b) the setup, and its limbs onto the card once
+    t0 = time.perf_counter()
+    g1, _ = K.load_trusted_setup()
+    out["setup_load_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    K._points_on(tuple(g1), dev, n)
+    torch.cuda.synchronize()
+    out["setup_upload_s"] = time.perf_counter() - t0
+    say(f"kzg: (b) trusted setup ({len(g1)} G1 points) loaded in {out['setup_load_s']:.2f} s; "
+        f"its Montgomery limbs on the card in {out['setup_upload_s']:.3f} s")
+
+    # (c) one commitment: 1 warm-up with the capture, KZG_TIMED timed
+    blob = random_blob(rng)
+    t0 = time.perf_counter()
+    first = K.blob_to_kzg_commitment(blob)
+    out["first_commitment_s"] = time.perf_counter() - t0
+    g = K._MSM_GRAPHS.graphs[(dev.index, n)]
+    times = []
+    for i in range(KZG_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if K.blob_to_kzg_commitment(blob) != first:
+            fail(f"kzg: timed commitment {i} differs from the first")
+        times.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    expect = K.blob_to_kzg_commitment(blob, oracle=True)
+    out["oracle_commitment_s"] = time.perf_counter() - t0
+    if first != expect:
+        fail("kzg: the card's blob commitment differs from the host oracle's")
+    c = 0x1234567
+    if K.blob_to_kzg_commitment(c.to_bytes(32, "little") * n) != g1_to_bytes(C.g1_mul(C.G1_GEN, c)):
+        fail("kzg: a constant blob's commitment is not [c]G1")
+    msm_ms = replay_device_ms(g)
+    msm_bound, msm_by = replay_bound(g)
+    mean = sum(times) / len(times)
+    out["commitment"] = {"times_s": times, "commitments_per_s": 1 / mean,
+                         "replay_device_ms": msm_ms, "bound_ms": msm_bound, "bound_by": msm_by,
+                         "fp_launches_per_replay": g.launches,
+                         **graph_info(g)}
+    say(f"kzg: (c) blob commitment == host oracle's ({out['oracle_commitment_s']:.1f} s on the "
+        f"host, once); constant blob == [c]G1; first call {out['first_commitment_s']:.1f} s "
+        f"(eager warm-up, capture {g.capture_s:.2f} s, instantiate {g.instantiate_s:.2f} s); "
+        f"{g.nodes} nodes; pool {g.pool_bytes / 2**20:.1f} MiB")
+    say(f"kzg: (c) x{KZG_TIMED} bytes to commitment (host inverse NTT included): "
+        f"{', '.join(f'{t:.3f}' for t in times)} s, {1 / mean:.3f} commitments/s; replay "
+        f"{msm_ms:.2f} ms device, bound {msm_bound:.3f} ms ({msm_by}); Fp launches per replay "
+        f"{g.launches} on {smi}")
+
+    # (d) the opening checks through the pairing-check graph at class 2
+    a, b, z = (int.from_bytes(rng.bytes(31), "little") for _ in range(3))
+    line = K.blob_to_kzg_commitment(blob_of_poly([a, b]))
+    if line != g1_to_bytes(C.g1_add(C.g1_mul(g1[0], a), C.g1_mul(g1[1], b))):
+        fail("kzg: the linear blob's commitment is not [a]G1 + [b][tau]G1")
+    proof = g1_to_bytes(C.g1_mul(C.G1_GEN, b))
+    y = (a + b * z) % K.R
+    const = c.to_bytes(32, "little") * n
+    right, wrong = g1_to_bytes(C.g1_mul(C.G1_GEN, c)), g1_to_bytes(C.g1_mul(C.G1_GEN, c + 1))
+    zc = K._compute_challenge(const, right)
+    yc = K._evaluate_blob_at(K._blob_to_scalars(const), zc)
+    zw = K._compute_challenge(const, wrong)
+    checks = []
+    for label, run, opening, want in (
+            ("verify_kzg_proof valid", lambda: K.verify_kzg_proof(line, z, y, proof),
+             (line, z, y, proof), True),
+            ("verify_kzg_proof y + 1", lambda: K.verify_kzg_proof(line, z, y + 1, proof),
+             (line, z, y + 1, proof), False),
+            ("verify_blob_kzg_proof valid",
+             lambda: K.verify_blob_kzg_proof(const, right, K.G1_INFINITY_BYTES),
+             (right, zc, yc, K.G1_INFINITY_BYTES), True),
+            ("verify_blob_kzg_proof wrong commitment",
+             lambda: K.verify_blob_kzg_proof(const, wrong, K.G1_INFINITY_BYTES),
+             (wrong, zw, K._evaluate_blob_at(K._blob_to_scalars(const), zw),
+              K.G1_INFINITY_BYTES), False)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = run()
+        wall = time.perf_counter() - t0
+        oracle = pairings_are_one(K._opening_pairs(*opening))
+        if got is not want or oracle is not want:
+            fail(f"kzg: (d) {label}: card {got}, oracle {oracle}, expected {want}")
+        checks.append({"check": label, "verdict": got, "wall_s": wall})
+    pg = K._PAIRING_GRAPHS.graphs[(dev.index, 2)]
+    check_ms = replay_device_ms(pg)
+    check_bound, check_by = replay_bound(pg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    K.verify_kzg_proof(line, z, y, proof)
+    check_wall_ms = (time.perf_counter() - t0) * 1e3
+    ok, prof_wall_ms, events = profiled(lambda: K.verify_kzg_proof(line, z, y, proof))
+    busy = busy_ms(events)
+    if not ok:
+        fail("kzg: (d) the profiled opening check failed")
+    out["check"] = {"checks": checks, "replay_device_ms": check_ms, "bound_ms": check_bound,
+                    "bound_by": check_by, "wall_ms": check_wall_ms,
+                    "busy_ms": busy, "idle": 1 - busy / check_wall_ms if busy else None,
+                    "fp_launches_per_replay": pg.launches, **graph_info(pg)}
+    walls_s = ", ".join(f"{k['wall_s']:.3f}" for k in checks)
+    say(f"kzg: (d) opening checks {[(k['check'], k['verdict']) for k in checks]} == the "
+        f"oracle's pairings_are_one on the same pairs; walls {walls_s} s")
+    idle = (f"device busy {busy:.2f} ms, idle {100 * (1 - busy / check_wall_ms):.1f}% of the "
+            f"unprofiled {check_wall_ms:.1f} ms" if busy else
+            "device busy time not measured (no device events)")
+    say(f"kzg: (d) pairing-check graph (class 2): capture {pg.capture_s:.2f} s, instantiate "
+        f"{pg.instantiate_s:.2f} s, {pg.nodes} nodes, pool {pg.pool_bytes / 2**20:.1f} MiB; "
+        f"replay {check_ms:.2f} ms device, bound {check_bound:.4f} ms ({check_by}); Fp launches "
+        f"per replay {pg.launches}; one profiled check: {idle} on {smi}")
+
+    # (e) one block: 4 blobs, an aggregate proof and its checks; no capture
+    captures = K._MSM_GRAPHS.captures + K._PAIRING_GRAPHS.captures
+    replays = g.replays
+    blobs = [random_blob(rng) for _ in range(n_blobs)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    proof = K.compute_aggregate_kzg_proof(blobs)
+    out["aggregate_proof_s"] = time.perf_counter() - t0
+    if g.replays - replays != n_blobs + 1:
+        fail(f"kzg: (e) the aggregate proof made {g.replays - replays} MSM replays, "
+             f"not {n_blobs + 1}")
+    commitments = [K.blob_to_kzg_commitment(bl) for bl in blobs]
+    prev_mode = telemetry._mode
+    telemetry._mode = "on"  # the dispatch seam times each replay
+    try:
+        walls = []
+        for _ in range(3):
+            since = telemetry._seq
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ok = K.verify_aggregate_kzg_proof(blobs, commitments, proof)
+            wall = time.perf_counter() - t0
+            if not ok:
+                fail("kzg: (e) the block's aggregate proof did not verify")
+            dev_s = dispatch_seconds({K._PAIRING_GRAPHS.__name__}, since)
+            walls.append({"wall_s": wall, "replay_s": dev_s, "host_s": wall - dev_s})
+    finally:
+        telemetry._mode = prev_mode
+    sw = list(commitments)
+    sw[0], sw[1] = sw[1], sw[0]
+    swb = list(blobs)
+    swb[0], swb[1] = swb[1], swb[0]
+    verdicts = {
+        "right order": K.verify_aggregate_kzg_proof(blobs, commitments, proof),
+        "commitments swapped": K.verify_aggregate_kzg_proof(blobs, sw, proof),
+        "blobs swapped": K.verify_aggregate_kzg_proof(swb, commitments, proof),
+        "empty, infinity proof": K.verify_aggregate_kzg_proof([], [], K.G1_INFINITY_BYTES),
+        "empty, other proof": K.verify_aggregate_kzg_proof([], [], proof),
+    }
+    if verdicts != {"right order": True, "commitments swapped": False, "blobs swapped": False,
+                    "empty, infinity proof": True, "empty, other proof": False}:
+        fail(f"kzg: (e) aggregate verdicts {verdicts}")
+
+    class Sidecar:
+        beacon_block_slot = 7
+        beacon_block_root = b"\x11" * 32
+
+        def __init__(self, proof_):
+            self.blobs = blobs
+            self.kzg_aggregated_proof = proof_
+
+    K.validate_blobs_sidecar(7, b"\x11" * 32, commitments, Sidecar(proof))
+    for label, args in (("slot", (8, b"\x11" * 32, commitments, Sidecar(proof))),
+                        ("proof", (7, b"\x11" * 32, commitments, Sidecar(K.G1_INFINITY_BYTES)))):
+        try:
+            K.validate_blobs_sidecar(*args)
+        except K.KzgError as e:
+            if label not in str(e):
+                fail(f"kzg: (e) validate_blobs_sidecar with a wrong {label} raised {e!r}")
+        else:
+            fail(f"kzg: (e) validate_blobs_sidecar accepted a wrong {label}")
+    if K._MSM_GRAPHS.captures + K._PAIRING_GRAPHS.captures != captures:
+        fail("kzg: (e) a graph was captured after (c) and (d)")
+    out["block"] = {"blobs": n_blobs, "aggregate_proof_s": out["aggregate_proof_s"],
+                    "verify": walls, "verdicts": verdicts}
+    say(f"kzg: (e) block of {n_blobs} blobs: compute_aggregate_kzg_proof "
+        f"{out['aggregate_proof_s']:.2f} s ({n_blobs + 1} MSM replays); "
+        f"verify_aggregate_kzg_proof " + ", ".join(
+            f"{w['wall_s']:.3f} s (host {w['host_s']:.3f} + replay {w['replay_s']:.3f})"
+            for w in walls) + f"; verdicts {verdicts}; validate_blobs_sidecar passes and raises "
+        f"KzgError on a wrong slot and an infinity proof; no capture on {smi}")
+
+    # (a) the row counts every launch of the path used, all checked by phase 3
+    launches = dict(fp_cuda.LAUNCHES)
+    replayed = dict(graphs.REPLAYED)  # the KZG path's run ends here
+    eager_rows = {k: dict(v) for k, v in fp_cuda.ROWS.items()}
+    for label, rows in (("the MSM graph", g.rows), ("the pairing-check graph", pg.rows),
+                        ("an eager launch", eager_rows)):
+        stray = sorted({r for by in rows.values() for r in by} - set(N_KERNEL_CHECK))
+        if stray:
+            fail(f"kzg: {label} launched a kernel at row counts phase 3 did not check: {stray}")
+    missing = [k for k in fp_cuda.KERNELS if launches[k] + replayed[k] == 0]
+    if missing:
+        fail(f"kzg: kernels never launched on the KZG path: {missing}")
+    say(f"kzg: (a) every launch at a row count phase 3 checked (KZG_ROWS); launches on the "
+        f"path: eager {launches}, by replays {replayed}")
+    out["launches"] = {k: launches[k] + replayed[k] for k in fp_cuda.KERNELS}
+    out["msm_rows"], out["check_rows"] = g.rows, pg.rows
+    times = graph_times([g.rows, pg.rows], dev)
+    out["ms_per_commitment"] = kernel_ms(g.rows, times)
+    out["ms_per_check"] = kernel_ms(pg.rows, times)
+    for name in fp_cuda.KERNELS:
+        say(f"kzg: fp kernel {name}: {g.launches[name]} launches per commitment replay, "
+            f"{out['ms_per_commitment'][name]:.2f} ms (graph replay x launches); "
+            f"{pg.launches[name]} per check replay, {out['ms_per_check'][name]:.3f} ms")
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(f"kzg: phase {out['phase_s']:.1f} s")
+    return out
+
+
+def blob_of_poly(coeffs):
+    """The mainnet blob (bit-reversed evaluation form) of sum_k coeffs[k] x^k."""
+    from lodestar_tpu_torch.crypto import kzg as K
+
+    out = bytearray()
+    for w in K.compute_roots_of_unity(K.FIELD_ELEMENTS_PER_BLOB_MAINNET):
+        v = 0
+        for c in reversed(coeffs):
+            v = (v * w + c) % K.R
+        out += v.to_bytes(32, "little")
+    return bytes(out)
+
+
 # --- comparison with an earlier commit's kernels (--compare-parent) -----------
 
 
@@ -1620,7 +1979,7 @@ def compare_kernels(parent, main_run, dev, smi):
     return result
 
 
-# --- phase 9 -----------------------------------------------------------------
+# --- phase 10 ----------------------------------------------------------------
 
 
 def check_against_cpu(dev):
@@ -1669,6 +2028,15 @@ def main():
     sys.path.insert(0, repo)
     import torch
 
+    t_start = time.perf_counter()
+    phase_s = {}  # wall s of each phase, printed before the report
+
+    def phase(name, fn, *fn_args):
+        t0 = time.perf_counter()
+        out = fn(*fn_args)
+        phase_s[name] = time.perf_counter() - t0
+        return out
+
     # 1. probe
     say(f"probe: python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
@@ -1692,27 +2060,30 @@ def main():
         paths = list(pool.map(lambda src: fp_cuda.build(verbose=True, source=src), sources))
     fp_cuda._load()
     parent = fp_cuda.load_library(paths[1]) if args.compare_parent else None
-    say(f"build: fp kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+    phase_s["build"] = time.perf_counter() - t0
+    say(f"build: fp kernels built and loaded in {phase_s['build']:.1f} s")
 
     # 3. kernels vs plain versions
-    report = check_kernels(dev)
+    report = phase("kernels", check_kernels, dev)
     # 4. main path
-    main_run = main_path(dev, smi)
+    main_run = phase("main", main_path, dev, smi)
     # 5. profile of one merged verify and one 2048-set prep
-    per_ms, profiled_ms = profile_main(main_run, smi)
+    per_ms, profiled_ms = phase("profile", profile_main, main_run, smi)
     # 6. single launch, and the J-job verify
-    single = single_launch(dev, smi, main_run)
-    many_s = verify_many(dev, smi, main_run)
+    single = phase("single", single_launch, dev, smi, main_run)
+    many_s = phase("many", verify_many, dev, smi, main_run)
     # 7. serving through the verifier pool
-    served = serve(dev, smi, main_run)
+    served = phase("serve", serve, dev, smi, main_run)
     # 8. the state hashTreeRoot
-    hashed = htr(dev, smi)
-    # 9. check against the CPU path
-    check_against_cpu(dev)
+    hashed = phase("htr", htr, dev, smi)
+    # 9. KZG at a mainnet block
+    kzged = phase("kzg", kzg, dev, smi)
+    # 10. check against the CPU path
+    phase("check", check_against_cpu, dev)
     if parent is not None:
-        compare_kernels(parent, main_run, dev, smi)
+        phase("compare", compare_kernels, parent, main_run, dev, smi)
 
-    # 10. report
+    # 11. report
     from lodestar_tpu_torch.models import batch_verify as bv
 
     runs = {"verify": main_run["per_verify_rows"], "prep": main_run["per_prep_rows"]}
@@ -1733,6 +2104,17 @@ def main():
                 for (idx, size), g in sorted(bv._SINGLE_LAUNCH_GRAPHS.graphs.items())
                 if idx == dev.index},
             "serve_replayed": served["replayed"][name],
+            "kzg_launches": kzged["launches"][name],
+            "launches_per_kzg_commitment": kzged["commitment"]["fp_launches_per_replay"][name],
+            "launches_per_kzg_commitment_by_rows": kzged["msm_rows"][name],
+            "ms_per_kzg_commitment": kzged["ms_per_commitment"][name],
+            "bound_ms_per_kzg_commitment": sum(c * bound(name, n)[0]
+                                               for n, c in kzged["msm_rows"][name].items()),
+            "launches_per_kzg_check": kzged["check"]["fp_launches_per_replay"][name],
+            "launches_per_kzg_check_by_rows": kzged["check_rows"][name],
+            "ms_per_kzg_check": kzged["ms_per_check"][name],
+            "bound_ms_per_kzg_check": sum(c * bound(name, n)[0]
+                                          for n, c in kzged["check_rows"][name].items()),
         }
         for label, per_rows in runs.items():
             by_rows = per_rows[name]
@@ -1769,10 +2151,13 @@ def main():
                       for size, c in served["per_class"].items()},
         "runs": served["runs"]}))
     say("htr: " + json.dumps(hashed))
+    say("kzg: " + json.dumps({k: v for k, v in kzged.items() if not k.endswith("_rows")}))
     say(f"result: {main_run['sigs_per_s']:.1f} sigs/s verify-only, "
         f"{main_run['bytes_to_verdict_sigs_per_s']:.1f} sigs/s bytes to verdict ({merged}-set "
         f"merged batch, split schedule, device prep {main_run['prep_s']:.3f} s); single launch "
         f"{single['sigs_per_s']:.1f} sigs/s bytes to verdict on {smi}")
+    say("timing: " + json.dumps({**{k: round(v, 1) for k, v in phase_s.items()},
+                                 "total_s": round(time.perf_counter() - t_start, 1)}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

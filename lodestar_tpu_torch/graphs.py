@@ -13,7 +13,11 @@ Per graph:
 * static input buffers, one per input array; a call copies its numpy
   arrays into them, replays, and reads the outputs back to the host, all
   on a stream of the graph's own, so replays of different size classes
-  from different threads do not queue behind each other on the card;
+  from different threads do not queue behind each other on the card. An
+  input that is already a tensor on the graph's device (a constant cached
+  per device, such as the KZG trusted setup's limbs) is its own static
+  buffer: the capture reads it in place, and every later call must pass
+  that same tensor, which is not copied;
 * one eager warm-up run of the function on a side stream before the
   capture, which fills the per-device constant caches (a copy from host
   memory during a capture would fail it) and loads the kernel library;
@@ -88,6 +92,11 @@ class Graph:
         """Copy in, replay, read back; the caller holds the class's lock."""
         with torch.cuda.stream(self.stream):
             for buf, a in zip(self.inputs, arrays):
+                if isinstance(a, torch.Tensor) and a.device.type == "cuda":
+                    if a is not buf:
+                        raise ValueError("a device-resident graph input must be the tensor "
+                                         "the graph was captured with")
+                    continue
                 t = torch.from_numpy(np.ascontiguousarray(a))
                 if t.shape != buf.shape or t.dtype != buf.dtype:
                     raise ValueError(f"graph input {tuple(t.shape)}/{t.dtype} does not match the "
@@ -151,7 +160,8 @@ class GraphCache:
         return g, class_lock
 
     def __call__(self, device, *arrays):
-        """Numpy arrays in; `fn`'s outputs, replayed on `device`, as host
+        """Numpy arrays (or device-resident tensors, see the module
+        docstring) in; `fn`'s outputs, replayed on `device`, as host
         tensors. The first call of a size class captures its graph."""
         idx = self._index(device)
         g, class_lock = self._graph(idx, arrays)
@@ -178,7 +188,8 @@ class GraphCache:
 
     def _capture(self, dev, arrays) -> Graph:
         g = Graph()
-        g.inputs = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
+        g.inputs = [a if isinstance(a, torch.Tensor) and a.device == dev
+                    else torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
         g.stream = torch.cuda.Stream(dev)
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))

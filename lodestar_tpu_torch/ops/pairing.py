@@ -30,7 +30,13 @@ from . import curve as cv
 from . import fp
 from . import tower as tw
 
-__all__ = ["miller_loop", "final_exponentiation", "fp12_product_fold"]
+__all__ = [
+    "miller_loop",
+    "final_exponentiation",
+    "pairing",
+    "fp12_product_fold",
+    "multi_pairing_is_one",
+]
 
 # Bits of |x| below the MSB, MSB first (same schedule as the oracle).
 _X_BITS = [int(b) for b in bin(BLS_X_ABS)[3:]]
@@ -156,6 +162,15 @@ def final_exponentiation(f):
     return tw.fp12_mul(y, f3)
 
 
+def pairing(p_aff, q_aff):
+    """Full batched (cubed) ate pairing e(P, Q)^3; no infinity inputs. Two
+    counted dispatches, as in the JAX package (lazy import: prep imports
+    the host oracle modules, which this module does not load at import)."""
+    from . import prep
+
+    return prep._dispatch(final_exponentiation, prep._dispatch(miller_loop, p_aff, q_aff))
+
+
 def fp12_product_fold(f, mask=None):
     """Product of a batch of Fp12 values down axis 0 (tree fold).
 
@@ -173,3 +188,15 @@ def fp12_product_fold(f, mask=None):
         half = f.shape[0] // 2
         f = tw.fp12_mul(f[:half], f[half:])
     return f[0]
+
+
+def multi_pairing_is_one(p_aff, q_aff, mask=None):
+    """Batch predicate prod_i e(P_i, Q_i) == 1 with ONE shared final
+    exponentiation. p_aff/q_aff: batched affine points (batch axis 0);
+    mask: optional (B,) bool, False = skip the pair (treat as infinity).
+    Returns a 0-d bool tensor on the inputs' device, with no host sync:
+    on the card the KZG checks capture it as one CUDA graph per pow-2
+    pair class (``crypto/kzg.py``)."""
+    fs = miller_loop(p_aff, q_aff)
+    f = fp12_product_fold(fs, mask=mask)
+    return tw.fp12_eq_one(final_exponentiation(f))

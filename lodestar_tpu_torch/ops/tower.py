@@ -15,6 +15,10 @@ Layouts (leading batch dims elided):
 
 All elements are in Montgomery form (R = 2^396), relaxed per ops/fp.py.
 
+The host converters (`fp2_from_ints`, `fp2_to_ints`, `fp12_from_oracle`,
+`fp12_to_oracle`) move oracle integers to mont-form limbs and back through
+one counted `to_mont` or `from_mont` dispatch, as in the JAX package.
+
 Same-object operands route to the square (`fp2_mul`, `fp6_mul`,
 `fp12_mul` test ``a is b``), exactly as in the JAX package: the square
 gives other (equally valid) limbs than the general product, and the final
@@ -32,6 +36,10 @@ from ..crypto.bls import fields as F
 from . import fp
 
 __all__ = [
+    "fp2_from_ints",
+    "fp2_to_ints",
+    "fp2_zero",
+    "fp2_mul_small",
     "fp2_add",
     "fp2_sub",
     "fp2_neg",
@@ -60,10 +68,43 @@ __all__ = [
     "fp12_one",
     "fp12_eq_one",
     "fp12_frobenius",
+    "fp12_from_oracle",
+    "fp12_to_oracle",
 ]
 
 
+# --- host conversions (oracle <-> limbs) -------------------------------------
+
+
+def fp2_from_ints(vals) -> np.ndarray:
+    """[(c0, c1), ...] -> (N, 2, 33) mont-form limbs as numpy, the JAX
+    package's limbs: one counted `to_mont` dispatch on the host (the
+    plain version)."""
+    # lazy import: prep imports this module at its top level
+    from . import prep
+
+    out = np.stack(
+        [np.stack([fp.limbs_from_int(c0), fp.limbs_from_int(c1)]) for c0, c1 in vals]
+    )
+    return prep._dispatch(fp.to_mont, torch.from_numpy(out)).numpy()
+
+
+def fp2_to_ints(arr) -> list[tuple[int, int]]:
+    """(.., 2, 33) mont-form limbs (numpy, or a tensor on any device) ->
+    [(c0, c1), ...] canonical ints: one counted `from_mont` dispatch where
+    the limbs lie."""
+    from . import prep
+
+    std = prep._dispatch(fp.from_mont, torch.as_tensor(arr)).cpu().numpy()
+    flat = std.reshape(-1, 2, fp.LIMBS)
+    return [(fp.int_from_limbs(e[0]), fp.int_from_limbs(e[1])) for e in flat]
+
+
 # --- Fp2 --------------------------------------------------------------------
+
+
+def fp2_zero(batch_shape=(), device="cpu"):
+    return fp.zero((*batch_shape, 2), device)
 
 
 def fp2_one(batch_shape=(), device="cpu"):
@@ -120,6 +161,16 @@ def fp2_sq_acc(a):
 
 def fp2_sq(a):
     return fp.redc(fp2_sq_acc(a))
+
+
+def fp2_mul_small(a, k: int):
+    """Multiply by a small non-negative integer via repeated addition."""
+    if k == 0:
+        return fp2_zero(a.shape[:-2], a.device)
+    r = a
+    for _ in range(k - 1):
+        r = fp.add(r, a)
+    return r
 
 
 def fp2_mul_xi(a):
@@ -349,3 +400,20 @@ def fp12_frobenius(a, power: int = 1):
         stacked = fp2_conj(stacked)
     prod = fp2_mul(stacked, _frob_on(power, a.device))
     return _from_w_coeffs([prod[..., i, :, :] for i in range(6)])
+
+
+# --- oracle bridge ----------------------------------------------------------
+
+
+def fp12_from_oracle(vals) -> np.ndarray:
+    """List of oracle Fp12 tuples -> (N, 2, 3, 2, 33) mont limbs (numpy)."""
+    flat = [c for v in vals for half in v for c in half]
+    return fp2_from_ints(flat).reshape(len(vals), 2, 3, 2, fp.LIMBS)
+
+
+def fp12_to_oracle(arr) -> list:
+    """(.., 2, 3, 2, 33) mont limbs -> list of oracle Fp12 tuples."""
+    shaped = torch.as_tensor(arr).reshape(-1, 2, 3, 2, fp.LIMBS)
+    ints = fp2_to_ints(shaped.reshape(-1, 2, fp.LIMBS))
+    return [(tuple(ints[6 * i : 6 * i + 3]), tuple(ints[6 * i + 3 : 6 * i + 6]))
+            for i in range(shaped.shape[0])]

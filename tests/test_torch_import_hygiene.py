@@ -13,6 +13,7 @@
 """
 
 import ast
+import inspect
 import os
 import pathlib
 import shutil
@@ -48,6 +49,11 @@ assert not device_htr.HTR_GRAPHS.graphs and not device_htr.ROOT_GRAPHS.graphs, \
 assert device_htr.launch_count() == 0, "an HTR level was launched at import"
 assert not [k for k, v in vars(sha256).items() if isinstance(v, torch.Tensor)], \
     "a SHA-256 constant was made a tensor at import"
+from lodestar_tpu_torch.crypto import kzg
+assert not kzg._MSM_GRAPHS.graphs and not kzg._PAIRING_GRAPHS.graphs, \
+    "a KZG graph was captured at import"
+assert kzg._points_on.cache_info().currsize == 0, "the KZG setup was put on a device at import"
+assert kzg.load_trusted_setup.cache_info().currsize == 0, "the KZG setup was parsed at import"
 assert not torch.cuda.is_initialized(), "CUDA was initialized at import"
 print("imported", len(names))
 """
@@ -61,8 +67,8 @@ def test_every_module_imports_without_jax():
     # ops.prep, telemetry, and the serving modules: chain.bls.{interface,mesh,pool},
     # scheduler.{core,occupancy}, slo, tracing, logger, utils, offload.resilience,
     # crypto.bls.pairing; and the HTR slice: ops.sha256, params, types, ssz and its
-    # six modules, state_transition and its htr
-    assert "imported" in proc.stdout and int(proc.stdout.split()[-1]) >= 45
+    # six modules, state_transition and its htr; and the KZG slice: ops.msm, crypto.kzg
+    assert "imported" in proc.stdout and int(proc.stdout.split()[-1]) >= 47
 
 
 def _imported_top_levels(path):
@@ -77,14 +83,15 @@ def _imported_top_levels(path):
 
 def test_no_module_imports_jax_or_the_jax_package():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) >= 47
+    assert len(files) >= 49
     serving = {"chain/bls/pool.py", "chain/bls/mesh.py", "chain/bls/interface.py",
                "scheduler/core.py", "scheduler/occupancy.py", "slo.py", "tracing.py",
                "logger.py", "utils.py", "offload/resilience.py", "crypto/bls/pairing.py"}
     htr = {"ops/sha256.py", "params/__init__.py", "types/__init__.py", "ssz/__init__.py",
            "ssz/hash.py", "ssz/merkle.py", "ssz/types.py", "ssz/batch.py", "ssz/tree.py",
            "ssz/device_htr.py", "state_transition/__init__.py", "state_transition/htr.py"}
-    assert serving | htr <= {str(f.relative_to(PORT)) for f in files if PORT in f.parents}
+    kzg = {"ops/msm.py", "crypto/kzg.py"}
+    assert serving | htr | kzg <= {str(f.relative_to(PORT)) for f in files if PORT in f.parents}
     bad = [
         f"{f.relative_to(REPO)}:{line} imports {name}"
         for f in files
@@ -94,6 +101,19 @@ def test_no_module_imports_jax_or_the_jax_package():
     assert not bad, "\n".join(bad)
     # the check itself tells the port's name from the JAX package's
     assert "lodestar_tpu_torch" not in FORBIDDEN
+
+
+def test_kzg_reads_the_ports_own_trusted_setup():
+    """`crypto/kzg.py` reads the setup file beside it, a byte-equal copy of
+    the JAX package's, and names no path of the JAX package."""
+    from lodestar_tpu_torch.crypto import kzg
+
+    own = PORT / "crypto" / "trusted_setup.bin"
+    assert pathlib.Path(kzg.SETUP_PATH) == own and own.is_file()
+    default = inspect.signature(kzg.load_trusted_setup).parameters["path"].default
+    assert pathlib.Path(default) == own
+    assert own.read_bytes() == (REPO / "lodestar_tpu" / "crypto" / "trusted_setup.bin").read_bytes()
+    assert "lodestar_tpu/" not in (PORT / "crypto" / "kzg.py").read_text()
 
 
 def test_entry_point_raises_without_cuda():

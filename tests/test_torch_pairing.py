@@ -5,7 +5,8 @@ exponentiation, masked product fold) and against the pure-Python oracle
 
 Tolerance: none (exact integer equality). Batch 4, the shapes of the JAX
 package's own pairing tests, so the JAX side runs programs those tests
-already compile.
+already compile; `multi_pairing_is_one` at pair class 2, the size of
+every KZG check (one JAX compile), with a mask and a padding row.
 """
 
 import numpy as np
@@ -17,6 +18,7 @@ from lodestar_tpu.crypto.bls import fields as F
 from lodestar_tpu.crypto.bls import pairing as orc
 from lodestar_tpu.crypto.bls.curve import G1_GEN, G2_GEN
 from lodestar_tpu.ops import pairing as jprg
+from lodestar_tpu.ops import tower as jtw
 from lodestar_tpu_torch.ops import fp, pairing as prg, tower as tw
 
 PAIRS4 = [
@@ -76,3 +78,28 @@ def test_product_fold_with_mask(miller4):
     )
     want = F.fp12_mul(*fp12_to_oracle(f[0:3:2]))
     assert fp12_to_oracle(got[None]) == [want]
+
+
+def test_pairing_matches_jax_and_oracle():
+    px, py, qx, qy = limbs(PAIRS4)
+    got = prg.pairing((torch.from_numpy(px), torch.from_numpy(py)),
+                      (torch.from_numpy(qx), torch.from_numpy(qy)))
+    want = jprg.pairing((px, py), (qx, qy))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert tw.fp12_to_oracle(got) == jtw.fp12_to_oracle(np.asarray(want))
+    assert tw.fp12_to_oracle(got) == [orc.pairing(p, q) for p, q in PAIRS4]
+
+
+@pytest.mark.parametrize("mask", [[True, True], [True, False], [False, False]])
+def test_multi_pairing_is_one_with_mask_matches_jax(mask):
+    """e(5P, Q) * e(-5P, Q) == 1; with the second pair masked (a padding
+    row) it is e(5P, Q) != 1; with both masked the empty product is 1."""
+    p = C.g1_mul(G1_GEN, 5)
+    px, py, qx, qy = limbs([(p, G2_GEN), (C.g1_neg(p), G2_GEN)])
+    m = np.asarray(mask)
+    got = prg.multi_pairing_is_one((torch.from_numpy(px), torch.from_numpy(py)),
+                                   (torch.from_numpy(qx), torch.from_numpy(qy)),
+                                   mask=torch.from_numpy(m))
+    assert got.shape == () and got.dtype == torch.bool
+    want = bool(jprg.multi_pairing_is_one((px, py), (qx, qy), mask=m))
+    assert bool(got) == want == (mask != [True, False])

@@ -1,6 +1,7 @@
 """The port's Fp2/Fp6/Fp12 tower (`lodestar_tpu_torch.ops.tower`) held
 against `lodestar_tpu.ops.tower`, limb for limb, and against the
-pure-Python oracle on canonical values.
+pure-Python oracle on canonical values; the six host converters (oracle
+ints to limbs and back) against the JAX package's.
 
 Tolerance: none (exact integer equality). Inputs are made with numpy from
 fixed seeds; the relaxed inputs are outputs of tower arithmetic, so their
@@ -145,3 +146,40 @@ class TestFp12:
     def test_frobenius_constants_match(self):
         for k in (1, 2, 3):
             np.testing.assert_array_equal(tw._FROB_K[k], jtw._FROB_K[k])
+
+
+class TestConverters:
+    def test_fp2_from_ints_and_back(self):
+        xs = rand_ints(8, seed=50)
+        vals = [(xs[2 * i], xs[2 * i + 1]) for i in range(4)] + [(0, 0), (1, P - 1)]
+        got = tw.fp2_from_ints(vals)
+        assert isinstance(got, np.ndarray) and got.shape == (6, 2, fp.LIMBS)
+        np.testing.assert_array_equal(got, np.asarray(jtw.fp2_from_ints(vals)))
+        assert tw.fp2_to_ints(got) == vals
+        assert tw.fp2_to_ints(torch.from_numpy(got)) == vals
+
+    def test_fp2_to_ints_on_relaxed_limbs(self, elems):
+        _, a, _, _ = elems
+        x = a[:, 1, 2]  # (3, 2, 33): signed, non-canonical limbs
+        assert tw.fp2_to_ints(x) == jtw.fp2_to_ints(x.numpy())
+
+    def test_fp2_zero_and_mul_small(self, elems):
+        _, a, _, _ = elems
+        x = a[:, 0, 1]
+        assert tw.fp2_zero((3,)).shape == (3, 2, fp.LIMBS) and not tw.fp2_zero((3,)).any()
+        same_as_jax(tw.fp2_zero((2, 3)), jtw.fp2_zero((2, 3)))
+        for k in (0, 1, 2, 5):
+            got = tw.fp2_mul_small(x, k)
+            same_as_jax(got, jtw.fp2_mul_small(x.numpy(), k))
+            want = [(c0 * k % P, c1 * k % P) for c0, c1 in tw.fp2_to_ints(x)]
+            assert tw.fp2_to_ints(got) == want
+
+    def test_fp12_oracle_bridge(self, elems):
+        va, a, _, _ = elems
+        assert tw.fp12_to_oracle(a) == jtw.fp12_to_oracle(a.numpy()) == va
+        assert tw.fp12_to_oracle(a.numpy()) == va
+        vals, _ = rand_fp12(2, seed=60)
+        got = tw.fp12_from_oracle(vals)
+        assert got.shape == (2, 2, 3, 2, fp.LIMBS)
+        np.testing.assert_array_equal(got, np.asarray(jtw.fp12_from_oracle(vals)))
+        assert tw.fp12_to_oracle(got) == vals
