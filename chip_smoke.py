@@ -90,6 +90,31 @@ Phases, in order; any failure exits non-zero and prints no result:
             pool (`pipeline="on"`) prints its `pipeline_stats()`. Every
             kernel must be launched by a replay while the pool serves, and
             none eagerly.
+7b. offload the offload host (`offload/server.py`) as its entry point builds it:
+            `build_server(OFFLOAD_ARGV)` (the CUDA mesh, one lane on one GPU,
+            every pool class captured; one service slot, tenants a=1 and
+            b=3). Counts, replays and captures are reset after it; its
+            Status frame must say ACCEPT, one chip not wedged, tenant
+            capable. Verify frames go in through `local_transports`'s
+            `LocalStub` (the phase needs no grpc, which a GPU host may lack;
+            whether grpc imports is printed for the record) from four threads, as gRPC's workers
+            call `_verify`, and every reply is decoded against its request
+            (digest-checked): 16 frames of the merged batch's 128 sets, 8
+            with tenant a and 8 with b, at API priority (16 class-128
+            replays, True), 16 one-set gossip-attestation frames (16 class-8
+            replays, True), a frame of 128 with two swapped signatures
+            (False), a frame one byte short and a frame whose trailer names
+            an unknown priority class (error frames, no replay), and one
+            traced frame whose trailing metadata carries the server's
+            `offload_decode` and `offload_device_verify` spans, grafted
+            under a local span. Each run prints wall s, frames/s, sigs/s,
+            replays by class and the tenancy's served count per tenant; the
+            API run beside phase 7's pool figure. Then
+            `DegradingBlsVerifier([device pool, CPU oracle])`: 16 jobs of
+            128 True and the tampered job False, each served by the device
+            layer with zero fallbacks and skips. No capture, no eager
+            launch, every kernel launched by a replay, the lane breakers
+            clean. Lines start `offload:`.
 8. htr      the state hashTreeRoot (`state_transition/htr.py` over
             `ssz/device_htr.py` and `ops/sha256.py`), on the card by default
             (mode "auto"): each merkle level of at least 2048 pairs is one
@@ -1255,6 +1280,271 @@ def serve(dev, smi, main):
     return {"warm_s": warm_s, "per_class": per_class, "runs": runs, "replayed": replayed}
 
 
+# --- phase 7b ----------------------------------------------------------------
+# The offload host (`offload/server.py`) built as its entry point builds it,
+# on the CUDA mesh, driven in-process through `local_transports` (no grpc
+# needed, which a GPU host may lack) from four threads, as gRPC's worker threads call
+# `_verify`: one service slot, two tenants weighted 1:3.
+OFFLOAD_ARGV = ("--bls-mesh", "auto", "--workers", "4", "--tenant-slots", "1",
+                "--tenant-weight", "a=1", "--tenant-weight", "b=3")
+
+
+class _Counter:
+    """A labelled counter of the duck-typed metrics `DegradingBlsVerifier` takes."""
+
+    def __init__(self):
+        self.counts = {}
+
+    def labels(self, *key):
+        counts = self.counts
+
+        class _One:
+            def inc(self, by=1):
+                counts[key] = counts.get(key, 0) + by
+
+        return _One()
+
+
+class _Gauge:
+    def __init__(self):
+        self.value = None
+
+    def set(self, value):
+        self.value = value
+
+
+class FallbackMetrics:
+    """The `metrics.fallback_*` of `DegradingBlsVerifier`, counted here."""
+
+    def __init__(self):
+        self.fallback_active = _Gauge()
+        self.fallback_verifications = _Counter()
+        self.fallback_skipped = _Counter()
+
+
+def offload(dev, smi, main, served):
+    """Phase 7b: the offload host. (a) `build_server(OFFLOAD_ARGV)`, then
+    counts, replays and captures reset and the Status frame read; (b) verify
+    frames in and digest-checked verdict frames out through `LocalStub`
+    from four threads: 16 frames of 128 at API priority (tenants a and b),
+    16 one-set gossip frames, a tampered frame, a length mismatch and an
+    unknown priority class (error frames), and one traced frame whose
+    trailing metadata carries the server's spans; (c) each run's wall s,
+    frames/s, sigs/s, replays by class and tenancy served counts; (d)
+    `DegradingBlsVerifier` over the device pool and the CPU oracle, served
+    by the device layer every time. Fails on a capture, an eager launch, a
+    kernel no replay launched or a lane breaker that saw a failure."""
+    import asyncio
+
+    import torch
+
+    from lodestar_tpu_torch import graphs, tracing
+    from lodestar_tpu_torch.chain.bls import (
+        BlsDeviceVerifierPool,
+        BlsSingleThreadVerifier,
+        DegradingBlsVerifier,
+        VerifySignatureOpts,
+    )
+    from lodestar_tpu_torch.chain.bls.pool import POOL_SIZE_CLASSES
+    from lodestar_tpu_torch.models import batch_verify as bv
+    from lodestar_tpu_torch.offload import (
+        SETS_TRAILER_MAGIC,
+        SETS_TRAILER_VERSION,
+        OffloadError,
+        OffloadShed,
+        decode_status,
+        decode_verdict,
+        encode_sets,
+    )
+    from lodestar_tpu_torch.offload import server as osrv
+    from lodestar_tpu_torch.ops import fp_cuda
+    from lodestar_tpu_torch.scheduler import AdmissionState, PriorityClass
+
+    t_phase = time.perf_counter()
+    try:
+        import grpc  # noqa: F401
+
+        have_grpc = True
+    except ImportError:
+        have_grpc = False
+    say(f"offload: grpc {'imports' if have_grpc else 'does not import'} on this machine "
+        f"(recorded only: the phase serves in-process through LocalStub)")
+
+    # (a) the host as its entry point builds it
+    t0 = time.perf_counter()
+    server = osrv.build_server(list(OFFLOAD_ARGV))
+    build_s = time.perf_counter() - t0
+    mesh = server.mesh
+    say(f"offload: (a) build_server({' '.join(OFFLOAD_ARGV)}) in {build_s:.1f} s: "
+        f"{len(mesh)} lane(s) on {[str(lane.device) for lane in mesh.lanes]}, classes "
+        f"{list(POOL_SIZE_CLASSES)} captured (all of them by phase 7 already in this process)")
+    cache = bv._SINGLE_LAUNCH_GRAPHS
+    unwarmed = [c for c in POOL_SIZE_CLASSES if (dev.index, c) not in cache.graphs]
+    if len(mesh) != torch.cuda.device_count() or unwarmed:
+        fail(f"offload: the host's mesh has {len(mesh)} lanes, classes without a graph: "
+             f"{unwarmed}")
+    captures = cache.captures
+    fp_cuda.reset_launches()
+    graphs.reset_replayed()  # the serving path's run starts here
+    status = decode_status(server._status(b"", osrv._LocalContext()))
+    say(f"offload: (a) Status: admission {status.admission.label}, chips "
+        f"{[(c.occupancy_permille, c.wedged) for c in status.chips]}, tenant_capable "
+        f"{status.tenant_capable}, queue depth {status.queue_depth}")
+    if (status.admission is not AdmissionState.ACCEPT or len(status.chips) != len(mesh)
+            or any(c.wedged for c in status.chips) or not status.tenant_capable):
+        fail(f"offload: the Status frame is {status}")
+
+    # (b) frames in, digest-checked verdicts out, from four threads
+    stub = osrv.local_transports({"h100": server})("h100", "verify", None)
+    merged_sets = main["merged_sets"]
+    sets = main["batches"]["valid"]
+    api = [encode_sets(merged_sets[i * BATCH:(i + 1) * BATCH], tenant="ab"[i % 2],
+                       priority=PriorityClass.API) for i in range(MERGE_JOBS)]
+    gossip = [encode_sets([s], tenant="ab"[i % 2], priority=PriorityClass.GOSSIP_ATTESTATION)
+              for i, s in enumerate(merged_sets[:MERGE_JOBS])]
+    tampered = encode_sets(main["batches"]["swapped"], tenant="a", priority=PriorityClass.API)
+    mismatch = encode_sets(sets[:2])[:-1]  # one byte short of its two sets
+    unknown_class = (encode_sets(sets[:1]) + bytes([SETS_TRAILER_MAGIC, SETS_TRAILER_VERSION, 99])
+                     + (1).to_bytes(2, "little") + b"a")
+
+    def replays():
+        return {size: g.replays for (idx, size), g in cache.graphs.items() if idx == dev.index}
+
+    def verdict(frame, reply):
+        try:
+            return decode_verdict(reply, request=frame)
+        except OffloadShed as e:
+            return f"shed: {e}"
+        except OffloadError as e:
+            return f"error: {e}"
+
+    def one(frame):
+        return verdict(frame, stub(frame))  # no deadline: see PERF.md §7
+
+    runs = {}
+
+    def run(name, frames, want, want_replays):
+        before, served_before = replays(), dict(server.tenancy.served)
+        n_sets = sum(int.from_bytes(f[:4], "little") for f in frames)
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(4) as pool:
+            got = list(pool.map(one, frames))
+        wall = time.perf_counter() - t0
+        after = replays()
+        by_class = {k: after[k] - before.get(k, 0) for k in sorted(after)
+                    if after[k] != before.get(k, 0)}
+        tenants = {t: n - served_before.get(t, 0) for t, n in sorted(server.tenancy.served.items())
+                   if n != served_before.get(t, 0)}
+        runs[name] = {"frames": len(frames), "sets": n_sets, "wall_s": wall,
+                      "frames_per_s": len(frames) / wall, "sigs_per_s": n_sets / wall,
+                      "replays_by_class": by_class, "served_by_tenant": tenants}
+        say(f"offload: {name}: {len(frames)} frames, {n_sets} sets in {wall:.3f} s "
+            f"({len(frames) / wall:.2f} frames/s, {n_sets / wall:.1f} sigs/s), replays by class "
+            f"{by_class}, served by tenant {tenants}, verdicts {sorted(set(map(str, got)))} "
+            f"on {smi}")
+        if [g if isinstance(g, bool) else g.split(":")[0] for g in got] != want:
+            fail(f"offload: {name} gave {got}, not {want}")
+        if by_class != want_replays:
+            fail(f"offload: {name} replayed {by_class}, not {want_replays}")
+
+    run("api_16x128", api, [True] * MERGE_JOBS, {BATCH: MERGE_JOBS})
+    run("gossip_16x1", gossip, [True] * MERGE_JOBS, {8: MERGE_JOBS})
+    run("tampered_1x128", [tampered], [False], {BATCH: 1})
+    run("length_mismatch", [mismatch], ["error"], {})
+    run("unknown_class", [unknown_class], ["error"], {})
+    api_run = runs["api_16x128"]
+    say(f"offload: api_16x128 {api_run['sigs_per_s']:.1f} sigs/s through the host beside phase "
+        f"7's pool api_16x128 {served['runs']['api_16x128']['sigs_per_s']:.1f} sigs/s (4 "
+        f"class-512 replays there, 16 class-128 here); a class-128 frame costs "
+        f"{api_run['wall_s'] / MERGE_JOBS:.3f} s of wall a replay, against the server's "
+        f"slot_wait_margin_s {server.slot_wait_margin_s} on {smi}")
+
+    # a traced frame: the server's spans come home in trailing metadata
+    tracing.reset()
+    tracing.configure(enabled=True, slow_slot_ms=60_000.0)
+    try:
+        before = replays()
+        with tracing.root("offload_smoke") as root:
+            t0 = time.monotonic_ns()
+            reply, call = stub.with_call(gossip[0], metadata=(
+                (tracing.TRACE_CONTEXT_KEY, tracing.context_header()),))
+            payload = dict(call.trailing_metadata()).get(tracing.TRACE_SPANS_KEY)
+            grafted = tracing.graft_remote_spans(root, payload, t0)
+        spans = {s.name: s for s in root.trace.spans}
+    finally:
+        tracing.reset()
+    got = verdict(gossip[0], reply)
+    names = [item["name"] for item in json.loads(payload)] if payload else []
+    after = replays()
+    by_class = {k: after[k] - before.get(k, 0) for k in after if after[k] != before.get(k, 0)}
+    span_ms = {n: round(spans[n].duration_ms, 1) for n in names if n in spans}
+    say(f"offload: traced frame: verdict {got}, trailing spans {names}, {grafted} grafted "
+        f"(ms {span_ms}), replays by class {by_class}")
+    if (got is not True or {"offload_decode", "offload_device_verify"} - set(names)
+            or grafted != 2 or by_class != {8: 1}):
+        fail(f"offload: the traced frame gave {got} with spans {names} ({grafted} grafted)")
+    server.stop()
+    lane = mesh.lanes[0]
+    if lane.breaker.state().name != "CLOSED" or lane.breaker._failures:
+        fail(f"offload: the lane's breaker shows a failure ({lane.breaker.state().name})")
+
+    # (d) the degradation chain, served by its device layer
+    metrics = FallbackMetrics()
+
+    async def degrade():
+        pool = BlsDeviceVerifierPool(mesh_mode="auto")
+        deg = DegradingBlsVerifier([("device", pool), ("cpu", BlsSingleThreadVerifier())],
+                                   metrics=metrics)
+        opts = VerifySignatureOpts(batchable=True, priority=PriorityClass.API)
+
+        async def job(sets_):
+            return await deg.verify_signature_sets(sets_, opts), deg.serving_layer()
+
+        before = replays()
+        t0 = time.perf_counter()
+        got = await asyncio.gather(*(job(merged_sets[i * BATCH:(i + 1) * BATCH])
+                                     for i in range(MERGE_JOBS)))
+        wall = time.perf_counter() - t0
+        mid = replays()
+        bad = await job(main["batches"]["swapped"])
+        after = replays()
+        breaker = pool.mesh.lanes[0].breaker
+        clean = breaker.state().name == "CLOSED" and not breaker._failures
+        await deg.close()
+        return (got, bad, wall, clean,
+                {k: mid[k] - before.get(k, 0) for k in mid if mid[k] != before.get(k, 0)},
+                {k: after[k] - mid.get(k, 0) for k in after if after[k] != mid.get(k, 0)})
+
+    got, bad, wall, clean, by_class, bad_by_class = asyncio.run(degrade())
+    fallbacks = sum(metrics.fallback_verifications.counts.values())
+    skips = sum(metrics.fallback_skipped.counts.values())
+    degrading = {"wall_s": wall, "sigs_per_s": BATCH * MERGE_JOBS / wall,
+                 "replays_by_class": by_class, "tampered_replays_by_class": bad_by_class,
+                 "fallbacks": fallbacks, "skips": skips,
+                 "fallback_active": metrics.fallback_active.value}
+    say(f"offload: (d) DegradingBlsVerifier [device, cpu]: 16 jobs of 128 in {wall:.3f} s "
+        f"({degrading['sigs_per_s']:.1f} sigs/s), replays by class {by_class}; tampered job "
+        f"{bad[0]} (replays {bad_by_class}); layers {sorted({layer for _, layer in got})} and "
+        f"{bad[1]}; fallbacks {fallbacks}, skips {skips}, fallback_active "
+        f"{metrics.fallback_active.value} on {smi}")
+    if (got != [(True, "device")] * MERGE_JOBS or bad != (False, "device") or fallbacks or skips
+            or metrics.fallback_active.value != 0 or not clean):
+        fail(f"offload: the degrading verifier gave {got} and {bad} (fallbacks {fallbacks}, "
+             f"skips {skips}, breaker clean {clean})")
+
+    replayed = dict(graphs.REPLAYED)  # the serving path's run ends here
+    if cache.captures != captures:
+        fail(f"offload: {cache.captures - captures} graphs were captured while the host served")
+    missing = [k for k in fp_cuda.KERNELS if replayed[k] <= 0]
+    if missing:
+        fail(f"offload: kernels never launched by a replay while the host served: {missing}")
+    if any(fp_cuda.LAUNCHES.values()):
+        fail(f"offload: eager kernel launches while the host served: {dict(fp_cuda.LAUNCHES)}")
+    say(f"offload: no capture while serving; Fp launches replayed {replayed}")
+    return {"grpc": have_grpc, "build_s": build_s, "runs": runs, "degrading": degrading,
+            "replayed": replayed, "phase_s": time.perf_counter() - t_phase}
+
+
 # --- phase 8 -----------------------------------------------------------------
 # The state hashTreeRoot at BASELINE config 4's size. The HTR path has no
 # hand kernel (the JAX package's `ops/sha256.py` is plain XLA): each level
@@ -2074,6 +2364,8 @@ def main():
     many_s = phase("many", verify_many, dev, smi, main_run)
     # 7. serving through the verifier pool
     served = phase("serve", serve, dev, smi, main_run)
+    # 7b. the offload host on the device mesh
+    offloaded = phase("offload", offload, dev, smi, main_run, served)
     # 8. the state hashTreeRoot
     hashed = phase("htr", htr, dev, smi)
     # 9. KZG at a mainnet block
@@ -2104,6 +2396,7 @@ def main():
                 for (idx, size), g in sorted(bv._SINGLE_LAUNCH_GRAPHS.graphs.items())
                 if idx == dev.index},
             "serve_replayed": served["replayed"][name],
+            "offload_replayed": offloaded["replayed"][name],
             "kzg_launches": kzged["launches"][name],
             "launches_per_kzg_commitment": kzged["commitment"]["fp_launches_per_replay"][name],
             "launches_per_kzg_commitment_by_rows": kzged["msm_rows"][name],
@@ -2150,6 +2443,7 @@ def main():
         "per_class": {size: {k: v for k, v in c.items() if k != "launches"}
                       for size, c in served["per_class"].items()},
         "runs": served["runs"]}))
+    say("offload: " + json.dumps({k: v for k, v in offloaded.items() if k != "replayed"}))
     say("htr: " + json.dumps(hashed))
     say("kzg: " + json.dumps({k: v for k, v in kzged.items() if not k.endswith("_rows")}))
     say(f"result: {main_run['sigs_per_s']:.1f} sigs/s verify-only, "

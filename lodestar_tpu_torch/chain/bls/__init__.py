@@ -2,6 +2,7 @@
 PyTorch port's copy of ``lodestar_tpu/chain/bls``, serving batch
 verification through the port's device model."""
 
+from .fallback import DegradingBlsVerifier  # noqa: F401
 from .interface import (  # noqa: F401
     BlsSingleThreadVerifier,
     BlsVerifierMock,

@@ -8,14 +8,23 @@ attribute-carrying) stitched into a `Trace`, the current span in a
 `record` for spans timed on another thread (the pool's executor threads,
 where `run_in_executor` does not carry the contextvar). Disabled, every
 call site costs one flag check and gets a shared no-op span. Stdlib only.
-Cross-process propagation, the metric bridge and the Chrome-trace export
-of the JAX package are not copied.
+
+Cross-process propagation for the offload host (`offload/server.py`) is
+copied too: the caller's trace context rides the verify RPC's metadata
+(`context_header`, key `TRACE_CONTEXT_KEY`), the server records its spans
+on a `RemoteSpanRecorder` relative to its own start and ships them home
+in trailing metadata (key `TRACE_SPANS_KEY`) as the JAX package's JSON
+payload, and the client grafts them under its RPC span
+(`graft_remote_spans`); a client of either package reads the other's
+payload. The metric bridge and the Chrome-trace export of the JAX package
+are not copied.
 """
 
 from __future__ import annotations
 
 import contextvars
 import itertools
+import json
 import threading
 import time
 from collections import deque
@@ -35,7 +44,19 @@ __all__ = [
     "record",
     "critical_path",
     "current_log_ctx",
+    "context_header",
+    "parse_context_header",
+    "RemoteSpanRecorder",
+    "remote_recorder",
+    "graft_remote_spans",
+    "TRACE_CONTEXT_KEY",
+    "TRACE_SPANS_KEY",
 ]
+
+# gRPC metadata keys: context flows caller→callee, completed server
+# spans flow back in trailing metadata ("-bin" keys carry raw bytes)
+TRACE_CONTEXT_KEY = "x-lodestar-trace"
+TRACE_SPANS_KEY = "x-lodestar-trace-spans-bin"
 
 _current_span: contextvars.ContextVar["Span | None"] = contextvars.ContextVar(
     "lodestar_trace_span", default=None
@@ -447,3 +468,128 @@ def current_log_ctx() -> str:
     if sp is None:
         return ""
     return f" [trace={sp.trace.trace_id}]"
+
+
+# -- cross-process propagation (offload gRPC) ----------------------------------
+
+
+def context_header() -> str | None:
+    """Serialized trace context for gRPC metadata: 'trace_id:span_id:slot'."""
+    if not _TRACER.enabled:
+        return None
+    sp = _current_span.get()
+    if sp is None:
+        return None
+    slot = sp.trace.slot if sp.trace.slot is not None else ""
+    return f"{sp.trace.trace_id}:{sp.span_id}:{slot}"
+
+
+def parse_context_header(header: str) -> tuple[str, int, int | None] | None:
+    try:
+        trace_id, span_id, slot = header.split(":", 2)
+        return trace_id, int(span_id), (int(slot) if slot else None)
+    except (ValueError, AttributeError):
+        return None
+
+
+class RemoteSpanRecorder:
+    """Server-side recorder: collects spans relative to its own creation
+    and serializes them for the trailing-metadata trip home. Independent
+    of the server process's global tracer — the caller's header is the
+    enable signal."""
+
+    __slots__ = ("origin_ns", "spans", "_lock", "_next_id")
+
+    def __init__(self):
+        self.origin_ns = time.monotonic_ns()
+        self.spans: list[dict] = []
+        self._lock = threading.Lock()
+        self._next_id = itertools.count(1)
+
+    def span(self, name: str, **attrs) -> "_RemoteSpanCtx":
+        return _RemoteSpanCtx(self, name, attrs)
+
+    def _add(self, name: str, start_ns: int, end_ns: int, attrs: dict) -> None:
+        with self._lock:
+            self.spans.append(
+                {
+                    "id": next(self._next_id),
+                    "name": name,
+                    "offset_ns": start_ns - self.origin_ns,
+                    "dur_ns": end_ns - start_ns,
+                    "attrs": attrs or {},
+                }
+            )
+
+    def serialize(self) -> bytes:
+        with self._lock:
+            return json.dumps(self.spans, separators=(",", ":")).encode()
+
+
+class _RemoteSpanCtx:
+    __slots__ = ("rec", "name", "attrs", "start_ns")
+
+    def __init__(self, rec: RemoteSpanRecorder, name: str, attrs: dict):
+        self.rec = rec
+        self.name = name
+        self.attrs = attrs
+
+    def __enter__(self):
+        self.start_ns = time.monotonic_ns()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        if exc is not None:
+            self.attrs["error"] = f"{type(exc).__name__}: {exc}"[:200]
+        self.rec._add(self.name, self.start_ns, time.monotonic_ns(), self.attrs)
+        return False
+
+    def set(self, **attrs):
+        self.attrs.update(attrs)
+        return self
+
+
+class _NoopRemoteRecorder:
+    __slots__ = ()
+
+    def span(self, name: str, **attrs):
+        return NOOP_SPAN
+
+    def serialize(self) -> bytes | None:
+        return None
+
+
+_NOOP_REMOTE = _NoopRemoteRecorder()
+
+
+def remote_recorder(header: str | None):
+    """Server entry: a live recorder when the caller sent a trace
+    context header, a shared no-op otherwise."""
+    if header and parse_context_header(header) is not None:
+        return RemoteSpanRecorder()
+    return _NOOP_REMOTE
+
+
+def graft_remote_spans(parent: Span | None, payload: bytes, anchor_start_ns: int) -> int:
+    """Client side: rebase serialized server spans under the local RPC
+    span. Server offsets are relative to its handling start; anchoring
+    them at the client RPC start keeps ordering honest (network skew
+    shows up as the gap between the RPC span and its children). Returns
+    the number of grafted spans."""
+    if parent is None or isinstance(parent, _NoopSpan) or not payload:
+        return 0
+    try:
+        items = json.loads(payload.decode())
+    except (ValueError, UnicodeDecodeError):
+        return 0
+    n = 0
+    for item in items:
+        try:
+            start = anchor_start_ns + int(item["offset_ns"])
+            attrs = dict(item.get("attrs") or {})
+            attrs["remote"] = True
+            _TRACER.record(parent, str(item["name"]), start, start + int(item["dur_ns"]), attrs)
+            n += 1
+        except (KeyError, TypeError, ValueError):
+            continue
+    return n
