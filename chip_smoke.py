@@ -115,6 +115,32 @@ Phases, in order; any failure exits non-zero and prints no result:
             layer with zero fallbacks and skips. No capture, no eager
             launch, every kernel launched by a replay, the lane breakers
             clean. Lines start `offload:`.
+7c. client  the port's offload client (`offload/client.py`) over two hosts on
+            the card: "h100-a" is 7b's host, "h100-b" a second
+            `BlsOffloadServer` over the same lanes with the same tenancy
+            flags, both in-process through `local_transports` with a
+            `FaultInjector` in front; counts, replays and captures reset
+            first. (a) the 16 API jobs of 128 (tenant a, gathered on one
+            loop; the API budget raised to 30 s, see CLIENT_API_BUDGET_S):
+            all True, 16 class-128 replays, the jobs' split between the
+            hosts, sigs/s beside 7b's and phase 7's. (b) 16 one-set
+            gossip-block jobs at the default class budgets, sequential
+            retry, then with the concurrent hedge at
+            DEFAULT_HEDGE_DELAY_MS: verdicts, sheds, failovers, hedges,
+            replays and the replays past the verdicts. (c) h100-b cut
+            under a burst of one-set gossip-attestation jobs: every
+            verdict True through failover to h100-a, h100-b's breaker
+            open after DEFAULT_FAILURE_THRESHOLD failures and not dialed,
+            then healed: a probe answers and its half-open trial re-closes
+            it; endpoint_states() at each step. (d) a LIE_VERDICT window on
+            h100-b (h100-a cut meanwhile), an OffloadAuditor on the CPU
+            oracle: the lie served, caught within detection_horizon
+            samples, h100-b quarantined, later jobs on h100-a only, then
+            lifted by unquarantine_endpoint. (e) DegradingBlsVerifier
+            [client, device pool, CPU oracle]: both hosts cut, the pool
+            serves (counted); healed, the client serves. No capture, no
+            eager launch, every kernel replayed. Lines start
+            `offload-client:`.
 8. htr      the state hashTreeRoot (`state_transition/htr.py` over
             `ssz/device_htr.py` and `ops/sha256.py`), on the card by default
             (mode "auto"): each merkle level of at least 2048 pairs is one
@@ -1290,7 +1316,8 @@ OFFLOAD_ARGV = ("--bls-mesh", "auto", "--workers", "4", "--tenant-slots", "1",
 
 
 class _Counter:
-    """A labelled counter of the duck-typed metrics `DegradingBlsVerifier` takes."""
+    """A labelled counter (or gauge) of the duck-typed metrics that
+    `DegradingBlsVerifier` and `BlsOffloadClient` take."""
 
     def __init__(self):
         self.counts = {}
@@ -1302,7 +1329,13 @@ class _Counter:
             def inc(self, by=1):
                 counts[key] = counts.get(key, 0) + by
 
+            def set(self, value):
+                counts[key] = value
+
         return _One()
+
+    def total(self):
+        return sum(self.counts.values())
 
 
 class _Gauge:
@@ -1483,7 +1516,6 @@ def offload(dev, smi, main, served):
     if (got is not True or {"offload_decode", "offload_device_verify"} - set(names)
             or grafted != 2 or by_class != {8: 1}):
         fail(f"offload: the traced frame gave {got} with spans {names} ({grafted} grafted)")
-    server.stop()
     lane = mesh.lanes[0]
     if lane.breaker.state().name != "CLOSED" or lane.breaker._failures:
         fail(f"offload: the lane's breaker shows a failure ({lane.breaker.state().name})")
@@ -1541,8 +1573,417 @@ def offload(dev, smi, main, served):
     if any(fp_cuda.LAUNCHES.values()):
         fail(f"offload: eager kernel launches while the host served: {dict(fp_cuda.LAUNCHES)}")
     say(f"offload: no capture while serving; Fp launches replayed {replayed}")
+    # the host keeps serving: phase 7c's client routes to it (and stops it)
     return {"grpc": have_grpc, "build_s": build_s, "runs": runs, "degrading": degrading,
-            "replayed": replayed, "phase_s": time.perf_counter() - t_phase}
+            "replayed": replayed, "phase_s": time.perf_counter() - t_phase, "server": server}
+
+
+# --- phase 7c ----------------------------------------------------------------
+# The port's offload client (`offload/client.py`) over two endpoints on the one
+# card: "h100-a" is phase 7b's host, "h100-b" a second `BlsOffloadServer` over
+# the same mesh's lanes with the same tenancy flags (one service slot each).
+# Both are served in-process through `local_transports`, a `FaultInjector` in
+# front. The two hosts share one lane, so every replay of a class runs one at a
+# time on the card, whichever host serves it.
+CLIENT_TARGETS = ("h100-a", "h100-b")
+CLIENT_PROBE_S = 0.5  # the clients' Status probe interval (the default is 2.0 s)
+CLIENT_EXECUTOR_THREADS = 32  # the loop's default executor: every job of a burst in flight
+# (a) alone: 16 class-128 replays one at a time take ~11 s on the card, past
+# the API class's 10 s budget, so (a) measures throughput at a 30 s budget
+# (the client's flat timeout); (b) measures the class budgets themselves
+CLIENT_API_BUDGET_S = 30.0
+# (c) alone: a burst of 2 x DEFAULT_FAILURE_THRESHOLD one-set jobs all lands
+# on h100-a once h100-b is cut (~6.3 s of class-8 replays), past the 4 s
+# gossip-attestation budget; (c) gives the class one slot (12 s)
+CLIENT_FAULT_BUDGET_S = 12.0
+CLIENT_FAULT_BURSTS = 3  # bursts tried until h100-b's breaker opens
+CLIENT_AUDIT_RATE = 0.5  # (d): detection_horizon(0.5) = 7 samples
+CLIENT_AUDIT_SEED = 0
+
+
+class ClientMetrics:
+    """The `metrics=` of `BlsOffloadClient` (routed, failovers, hedges,
+    hedge_wins, shed, breaker_state, breaker_transitions), counted here."""
+
+    def __getattr__(self, name):
+        if name.startswith("_"):
+            raise AttributeError(name)
+        family = _Counter()
+        setattr(self, name, family)
+        return family
+
+    def counts(self):
+        return {name: getattr(self, name).total()
+                for name in ("routed", "failovers", "hedges", "hedge_wins", "shed")}
+
+
+def offload_client(dev, smi, main, served, offloaded):
+    """Phase 7c: the port's offload client over phase 7b's host ("h100-a") and a
+    second host on the same lanes ("h100-b"). (a) 16 API jobs of 128 sets; (b)
+    16 one-set gossip-block jobs at the default class budgets, sequential, then
+    with the concurrent hedge at DEFAULT_HEDGE_DELAY_MS; (c) a partition of
+    h100-b under a burst of one-set gossip-attestation jobs: failover to
+    h100-a, h100-b's breaker open after DEFAULT_FAILURE_THRESHOLD failures,
+    re-closed by its half-open trial after heal and a probe success; (d) a
+    LIE_VERDICT window on h100-b caught by an OffloadAuditor on the CPU oracle,
+    the liar quarantined, later jobs on h100-a only, then lifted; (e)
+    DegradingBlsVerifier [client, device pool, CPU oracle]: both hosts cut (the
+    pool serves), then healed (the client serves). Counts, replays and
+    captures reset at the start; fails on a wrong verdict (other than the
+    injected lie, which must be caught), a capture, an eager launch, or a
+    kernel no replay launched."""
+    import asyncio
+    from collections import Counter
+
+    from lodestar_tpu_torch import graphs
+    from lodestar_tpu_torch.chain.bls import (
+        BlsDeviceVerifierPool,
+        BlsSingleThreadVerifier,
+        DegradingBlsVerifier,
+        VerifySignatureOpts,
+    )
+    from lodestar_tpu_torch.models import batch_verify as bv
+    from lodestar_tpu_torch.offload import OffloadError
+    from lodestar_tpu_torch.offload import server as osrv
+    from lodestar_tpu_torch.offload.audit import (
+        AuditSampler,
+        OffloadAuditor,
+        cpu_oracle_reference,
+        detection_horizon,
+    )
+    from lodestar_tpu_torch.offload.client import BlsOffloadClient
+    from lodestar_tpu_torch.offload.resilience import (
+        CLASS_DEADLINE_S,
+        DEFAULT_FAILURE_THRESHOLD,
+        DEFAULT_HEDGE_DELAY_MS,
+    )
+    from lodestar_tpu_torch.ops import fp_cuda
+    from lodestar_tpu_torch.scheduler import PriorityClass
+    from lodestar_tpu_torch.testing import FaultInjector, FaultKind, FaultRule
+
+    t_phase = time.perf_counter()
+    host_a = offloaded["server"]
+    mesh, ten = host_a.mesh, host_a.tenancy
+    host_b = osrv.BlsOffloadServer(
+        host_a.backend, max_workers=host_a._max_workers, tenant_weights=dict(ten._weights),
+        tenant_default_weight=ten._default_weight, tenant_slots=ten._slots,
+        tenant_shed_depth=ten.shed_depth, tenant_reject_depth=ten.reject_depth,
+        chip_status_fn=mesh.chip_table)
+    servers = dict(zip(CLIENT_TARGETS, (host_a, host_b)))
+    A, B = CLIENT_TARGETS
+    say(f"offload-client: two hosts on {len(mesh)} lane(s): {A} = phase 7b's "
+        f"build_server({' '.join(OFFLOAD_ARGV)}), {B} = BlsOffloadServer(the same backend, "
+        f"{ten._slots} slot, weights {ten._weights}); probe {CLIENT_PROBE_S} s, "
+        f"{CLIENT_EXECUTOR_THREADS} executor threads; class budgets "
+        f"{ {c.label: v for c, v in CLASS_DEADLINE_S.items()} } s, hedge delay "
+        f"{DEFAULT_HEDGE_DELAY_MS} ms, breaker threshold {DEFAULT_FAILURE_THRESHOLD}")
+    cache = bv._SINGLE_LAUNCH_GRAPHS
+    captures = cache.captures
+    fp_cuda.reset_launches()
+    graphs.reset_replayed()  # the client's run starts here
+
+    merged_sets = main["merged_sets"]
+    valid, swapped = main["batches"]["valid"], main["batches"]["swapped"]
+    api_jobs = [merged_sets[i * BATCH:(i + 1) * BATCH] for i in range(MERGE_JOBS)]
+    gossip_jobs = [[s] for s in valid[:MERGE_JOBS]]
+    invalid_jobs = [[swapped[i % 2]] for i in range(2 * MERGE_JOBS)]  # a swapped signature
+
+    def replays():
+        return {size: g.replays for (idx, size), g in cache.graphs.items() if idx == dev.index}
+
+    def since(before):
+        after = replays()
+        return {k: after[k] - before.get(k, 0) for k in sorted(after)
+                if after[k] != before.get(k, 0)}
+
+    def make_client(inj, **kw):
+        kw.setdefault("probe_interval_s", CLIENT_PROBE_S)
+        kw.setdefault("tenant", "a")
+        return BlsOffloadClient(list(CLIENT_TARGETS), transport_wrapper=osrv.local_transports(
+            servers, wrap=inj.wrap_transport), **kw)
+
+    def states(client):
+        return {s["target"]: {k: s[k] for k in ("healthy", "breaker", "quarantined", "trust",
+                                                 "outstanding", "admission",
+                                                 "occupancy_permille")}
+                for s in client.endpoint_states()}
+
+    async def outcome(client, sets_, priority):
+        try:
+            return await client.verify_signature_sets(sets_, VerifySignatureOpts(priority=priority))
+        except OffloadError as e:  # fail closed: a shed or an error, never a verdict
+            return type(e).__name__
+
+    async def idle(client, timeout_s=30.0):
+        deadline = time.monotonic() + timeout_s
+        while any(s["outstanding"] for s in client.endpoint_states()):
+            if time.monotonic() > deadline:
+                fail(f"offload-client: work still in flight after {timeout_s} s: "
+                     f"{states(client)}")
+            await asyncio.sleep(0.01)
+
+    async def settle(client, inj, targets=CLIENT_TARGETS, timeout_s=20.0):
+        """Nothing in flight, then two more Status probes of each target, all
+        healthy: the card is idle across the probes, so its occupancy only
+        decays between them. Returns the seconds waited."""
+        t0 = time.perf_counter()
+        await idle(client)
+        marks = {t: inj.calls_to(t, "status") for t in targets}
+        deadline = time.monotonic() + timeout_s
+        while not (all(inj.calls_to(t, "status") >= marks[t] + 2 for t in targets)
+                   and all(states(client)[t]["healthy"] for t in targets)):
+            if time.monotonic() > deadline:
+                fail(f"offload-client: endpoints not healthy after {timeout_s} s: "
+                     f"{states(client)}")
+            await asyncio.sleep(0.02)
+        return time.perf_counter() - t0
+
+    out = {}
+
+    async def run_api():
+        inj, m = FaultInjector(seed=0), ClientMetrics()
+        client = make_client(inj, metrics=m, class_deadlines={
+            **CLASS_DEADLINE_S, PriorityClass.API: CLIENT_API_BUDGET_S})
+        await settle(client, inj)
+        before = replays()
+        served_before = {t: srv.tenancy.served.get("a", 0) for t, srv in servers.items()}
+        t0 = time.perf_counter()
+        got = await asyncio.gather(*(outcome(client, j, PriorityClass.API) for j in api_jobs))
+        wall = time.perf_counter() - t0
+        by_class = since(before)
+        split = {t: inj.calls_to(t, "verify") for t in CLIENT_TARGETS}
+        tenant_a = {t: srv.tenancy.served.get("a", 0) - served_before[t]
+                    for t, srv in servers.items()}
+        await client.close()
+        n_sets = BATCH * MERGE_JOBS
+        run = {"wall_s": wall, "sigs_per_s": n_sets / wall, "replays_by_class": by_class,
+               "split": split, "served_tenant_a": tenant_a, "counts": m.counts()}
+        say(f"offload-client: (a) api 16x128 (tenant a, API budget {CLIENT_API_BUDGET_S} s): "
+            f"{n_sets} sets in {wall:.3f} s ({run['sigs_per_s']:.1f} sigs/s), replays by class "
+            f"{by_class}, jobs by endpoint {split}, tenant a served {tenant_a}, verdicts "
+            f"{dict(Counter(map(str, got)))}; beside phase 7b's host "
+            f"{offloaded['runs']['api_16x128']['sigs_per_s']:.1f} and phase 7's pool "
+            f"{served['runs']['api_16x128']['sigs_per_s']:.1f} sigs/s on {smi}")
+        if got != [True] * MERGE_JOBS or by_class != {BATCH: MERGE_JOBS}:
+            fail(f"offload-client: (a) gave {got}, replays {by_class}")
+        if sum(tenant_a.values()) != MERGE_JOBS:
+            fail(f"offload-client: (a) the tenant trailer was not accounted: {tenant_a}")
+        out["api"] = run
+
+    async def run_gossip(label, **kw):
+        inj, m = FaultInjector(seed=0), ClientMetrics()
+        client = make_client(inj, metrics=m, **kw)
+        await settle(client, inj)
+        before = replays()
+        sheds_before = {t: srv.tenancy.shed.get("a", 0) for t, srv in servers.items()}
+        t0 = time.perf_counter()
+        got = await asyncio.gather(*(outcome(client, j, PriorityClass.GOSSIP_BLOCK)
+                                     for j in gossip_jobs))
+        wall = time.perf_counter() - t0
+        await idle(client)  # a hedge's loser runs on: in-process calls are not cut
+        settled = time.perf_counter() - t0
+        by_class = since(before)
+        n_replays = sum(by_class.values())
+        verdicts = dict(Counter(map(str, got)))
+        served_sheds = {t: srv.tenancy.shed.get("a", 0) - sheds_before[t]
+                        for t, srv in servers.items()}
+        run = {"wall_s": wall, "settled_s": settled, "verdicts": verdicts,
+               "replays_by_class": by_class, "replays": n_replays,
+               "replays_past_verdicts": n_replays - got.count(True), "counts": m.counts(),
+               "server_sheds": served_sheds,
+               "split": {t: inj.calls_to(t, "verify") for t in CLIENT_TARGETS}}
+        await client.close()
+        say(f"offload-client: (b) {label}: {len(gossip_jobs)} one-set gossip-block jobs in "
+            f"{wall:.3f} s (all replays done {settled:.3f} s), verdicts {verdicts}, "
+            f"client {run['counts']}, server sheds {served_sheds}, calls by endpoint "
+            f"{run['split']}, replays {by_class} ({run['replays_past_verdicts']} past the "
+            f"{got.count(True)} verdicts) on {smi}")
+        if False in got or set(by_class) - {8}:
+            fail(f"offload-client: (b) {label} gave {got}, replays {by_class}")
+        out[label] = run
+
+    async def run_fault():
+        inj, m = FaultInjector(seed=0), ClientMetrics()
+        client = make_client(inj, metrics=m, class_deadlines={
+            **CLASS_DEADLINE_S, PriorityClass.GOSSIP_ATTESTATION: CLIENT_FAULT_BUDGET_S})
+        steps, verdicts = [], []
+
+        def step(name):
+            st = states(client)
+            steps.append({"step": name, "states": st})
+            say(f"offload-client: (c) {name}: endpoint_states {st}")
+
+        async def burst(jobs):
+            got = await asyncio.gather(*(outcome(client, j, PriorityClass.GOSSIP_ATTESTATION)
+                                         for j in jobs))
+            verdicts.extend(got)
+            if got != [True] * len(jobs):
+                fail(f"offload-client: (c) a verdict went wrong: {got}")
+
+        before = replays()
+        t0 = time.perf_counter()
+        await settle(client, inj)
+        step("start")
+        await burst(gossip_jobs[:2])
+        n = 2 * DEFAULT_FAILURE_THRESHOLD
+        for attempt in range(CLIENT_FAULT_BURSTS):
+            await settle(client, inj)  # an idle probe pair: h100-b ranks no lower than h100-a
+            step(f"before partition {attempt}")
+            b0 = inj.calls_to(B, "verify")
+            inj.partition(B)
+            await burst(gossip_jobs[:n])
+            failed_b = inj.calls_to(B, "verify") - b0
+            step(f"{B} partitioned, burst of {n}: {failed_b} calls failed on {B}")
+            if states(client)[B]["breaker"] == "open":
+                break
+            inj.heal(B)
+        else:
+            fail(f"offload-client: (c) {B}'s breaker never opened")
+        b0 = inj.calls_to(B, "verify")
+        await burst(gossip_jobs[:2])
+        step("breaker open: 2 more jobs")
+        if inj.calls_to(B, "verify") != b0:
+            fail(f"offload-client: (c) {B} was dialed with its breaker open")
+        inj.heal(B)
+        t_heal = time.perf_counter()
+        await settle(client, inj, targets=(B,))
+        heal_s = time.perf_counter() - t_heal
+        step(f"healed; a probe answered after {heal_s:.2f} s")
+        b0 = inj.calls_to(B, "verify")
+        await burst(gossip_jobs[:1])
+        step("one job: the half-open trial")
+        if inj.calls_to(B, "verify") != b0 + 1 or states(client)[B]["breaker"] != "closed":
+            fail(f"offload-client: (c) the trial did not re-close {B}: {states(client)}")
+        opened = m.breaker_transitions.counts.get((B, "open"), 0)
+        run = {"wall_s": time.perf_counter() - t0, "verdicts": dict(Counter(map(str, verdicts))),
+               "counts": m.counts(), "breaker_opened": opened, "heal_to_probe_s": heal_s,
+               "replays_by_class": since(before), "partitioned_calls": inj.injected[
+                   FaultKind.PARTITION], "steps": steps}
+        await client.close()
+        say(f"offload-client: (c) fault: {len(verdicts)} jobs, verdicts {run['verdicts']}, "
+            f"client {run['counts']}, {B} opened {opened}x, {run['partitioned_calls']} calls "
+            f"(verify and Status) refused by the partition, replays {run['replays_by_class']}, "
+            f"{run['wall_s']:.3f} s on {smi}")
+        out["fault"] = run
+
+    async def run_audit():
+        loop = asyncio.get_running_loop()
+        inj, m = FaultInjector(seed=0), ClientMetrics()
+        aud = OffloadAuditor(sampler=AuditSampler(CLIENT_AUDIT_RATE, seed=CLIENT_AUDIT_SEED),
+                             reference=cpu_oracle_reference, budget=1.0,
+                             quarantine_cooloff_s=None)
+        client = make_client(inj, metrics=m, auditor=aud)
+        horizon = detection_horizon(CLIENT_AUDIT_RATE)
+        before = replays()
+        t0 = time.perf_counter()
+        await settle(client, inj)
+        # the lie window: h100-b's next `horizon` verify calls answer the flipped
+        # verdict, re-signed; h100-a is cut meanwhile, so every job reaches the liar
+        b0 = inj.calls_to(B, "verify")
+        inj.rules.append(FaultRule(FaultKind.LIE_VERDICT, first_call=b0,
+                                   last_call=b0 + horizon - 1, targets=frozenset({B}),
+                                   methods=frozenset({"verify"})))
+        inj.partition(A)
+        lied, caught_at = [], None
+        for i in range(horizon):
+            lied.append(await outcome(client, invalid_jobs[i], PriorityClass.GOSSIP_BLOCK))
+            if not await loop.run_in_executor(None, aud.drain, 60.0):
+                fail("offload-client: (d) the audit did not drain in 60 s")
+            if states(client)[B]["quarantined"]:
+                caught_at = i + 1
+                break
+        lies_served = inj.injected[FaultKind.LIE_VERDICT]
+        say(f"offload-client: (d) {B} served the lied verdicts {lied} for invalid sets "
+            f"({lies_served} lies); audit sampled {aud.sampled}, audited {aud.audited}; caught "
+            f"at sample {caught_at} of the horizon {horizon}; events "
+            f"{[{k: e[k] for k in ('endpoint', 'claimed_verdict', 'recheck_verdict')} for e in aud.byzantine_events]}")
+        if caught_at is None or lied != [True] * caught_at or len(aud.byzantine_events) != 1:
+            fail(f"offload-client: (d) the lie was not caught: {lied}, {states(client)}")
+        inj.heal(A)
+        await settle(client, inj, targets=(A,))
+        b0 = inj.calls_to(B, "verify")
+        after = [await outcome(client, j, PriorityClass.GOSSIP_BLOCK) for j in invalid_jobs[:2]]
+        if not await loop.run_in_executor(None, aud.drain, 60.0):
+            fail("offload-client: (d) the audit did not drain in 60 s")
+        quarantined = states(client)
+        if after != [False, False] or inj.calls_to(B, "verify") != b0:
+            fail(f"offload-client: (d) after the quarantine: {after}, {quarantined}")
+        lifted = client.unquarantine_endpoint(B)
+        if not lifted or states(client)[B]["quarantined"]:
+            fail(f"offload-client: (d) unquarantine_endpoint did not lift {B}")
+        run = {"wall_s": time.perf_counter() - t0, "lied": lied, "caught_at": caught_at,
+               "horizon": horizon, "sampled": aud.sampled, "audited": aud.audited,
+               "trust": {t: aud.trust_value(t) for t in CLIENT_TARGETS},
+               "after_quarantine": after, "states_quarantined": quarantined,
+               "states_lifted": states(client), "replays_by_class": since(before)}
+        say(f"offload-client: (d) quarantined: {quarantined}; 2 later jobs {after} all on {A}; "
+            f"unquarantine_endpoint({B}) -> {lifted}: {states(client)[B]}; trust "
+            f"{run['trust']}; replays {run['replays_by_class']}; {run['wall_s']:.3f} s on {smi}")
+        await client.close()
+        out["audit"] = run
+
+    async def run_degrade():
+        inj, m, fm = FaultInjector(seed=0), ClientMetrics(), FallbackMetrics()
+        client = make_client(inj, metrics=m)
+        pool = BlsDeviceVerifierPool(mesh_mode="auto")
+        deg = DegradingBlsVerifier([("offload", client), ("device", pool),
+                                    ("cpu", BlsSingleThreadVerifier())], metrics=fm)
+        opts = VerifySignatureOpts(priority=PriorityClass.GOSSIP_ATTESTATION)
+        before = replays()
+        t0 = time.perf_counter()
+        await settle(client, inj)
+        served_by = []
+        inj.partition("*")
+        for job in gossip_jobs[:2]:
+            served_by.append((await deg.verify_signature_sets(job, opts), deg.serving_layer()))
+        cut = {"fallbacks": {k[0]: v for k, v in fm.fallback_verifications.counts.items()},
+               "skips": {k[0]: v for k, v in fm.fallback_skipped.counts.items()},
+               "down": client.is_down()}
+        inj.heal("*")
+        await settle(client, inj)
+        served_by.append((await deg.verify_signature_sets(gossip_jobs[2], opts),
+                          deg.serving_layer()))
+        await deg.close()
+        run = {"wall_s": time.perf_counter() - t0, "served_by": served_by, "cut": cut,
+               "fallback_active": fm.fallback_active.value, "replays_by_class": since(before)}
+        say(f"offload-client: (e) DegradingBlsVerifier [offload, device, cpu]: both hosts cut: "
+            f"{served_by[:2]} (fallbacks {cut['fallbacks']}, skips {cut['skips']}, client "
+            f"down {cut['down']}); healed: {served_by[2]}; fallback_active "
+            f"{fm.fallback_active.value}; replays {run['replays_by_class']}; "
+            f"{run['wall_s']:.3f} s on {smi}")
+        if (served_by != [(True, "device"), (True, "device"), (True, "offload")]
+                or cut["fallbacks"] != {"device": 2} or fm.fallback_active.value != 0):
+            fail(f"offload-client: (e) the degrading verifier gave {served_by} ({cut})")
+        out["degrade"] = run
+
+    async def drive():
+        asyncio.get_running_loop().set_default_executor(concurrent.futures.ThreadPoolExecutor(
+            CLIENT_EXECUTOR_THREADS, thread_name_prefix="offload-client"))
+        await run_api()
+        await run_gossip("gossip_sequential")
+        await run_gossip("gossip_hedged", hedge_delay_ms=DEFAULT_HEDGE_DELAY_MS)
+        await run_fault()
+        await run_audit()
+        await run_degrade()
+
+    asyncio.run(drive())
+    for srv in servers.values():
+        srv.stop()
+    replayed = dict(graphs.REPLAYED)  # the client's run ends here
+    if cache.captures != captures:
+        fail(f"offload-client: {cache.captures - captures} graphs were captured")
+    missing = [k for k in fp_cuda.KERNELS if replayed[k] <= 0]
+    if missing:
+        fail(f"offload-client: kernels never launched by a replay: {missing}")
+    if any(fp_cuda.LAUNCHES.values()):
+        fail(f"offload-client: eager kernel launches: {dict(fp_cuda.LAUNCHES)}")
+    if any(lane.breaker.state().name != "CLOSED" or lane.breaker._failures for lane in mesh.lanes):
+        fail("offload-client: a lane's breaker shows a failure")
+    out["replayed"] = replayed
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(f"offload-client: no capture, no eager launch; Fp launches replayed {replayed}; phase "
+        f"{out['phase_s']:.1f} s on {smi}")
+    return out
 
 
 # --- phase 8 -----------------------------------------------------------------
@@ -2366,6 +2807,8 @@ def main():
     served = phase("serve", serve, dev, smi, main_run)
     # 7b. the offload host on the device mesh
     offloaded = phase("offload", offload, dev, smi, main_run, served)
+    # 7c. the offload client over two hosts on the card
+    clients = phase("client", offload_client, dev, smi, main_run, served, offloaded)
     # 8. the state hashTreeRoot
     hashed = phase("htr", htr, dev, smi)
     # 9. KZG at a mainnet block
@@ -2397,6 +2840,7 @@ def main():
                 if idx == dev.index},
             "serve_replayed": served["replayed"][name],
             "offload_replayed": offloaded["replayed"][name],
+            "offload_client_replayed": clients["replayed"][name],
             "kzg_launches": kzged["launches"][name],
             "launches_per_kzg_commitment": kzged["commitment"]["fp_launches_per_replay"][name],
             "launches_per_kzg_commitment_by_rows": kzged["msm_rows"][name],
@@ -2443,7 +2887,10 @@ def main():
         "per_class": {size: {k: v for k, v in c.items() if k != "launches"}
                       for size, c in served["per_class"].items()},
         "runs": served["runs"]}))
-    say("offload: " + json.dumps({k: v for k, v in offloaded.items() if k != "replayed"}))
+    say("offload: " + json.dumps({k: v for k, v in offloaded.items()
+                                  if k not in ("replayed", "server")}))
+    say("offload-client: " + json.dumps({k: v for k, v in clients.items() if k != "replayed"},
+                                        default=str))
     say("htr: " + json.dumps(hashed))
     say("kzg: " + json.dumps({k: v for k, v in kzged.items() if not k.endswith("_rows")}))
     say(f"result: {main_run['sigs_per_s']:.1f} sigs/s verify-only, "

@@ -10,10 +10,24 @@ either package talks to a server of either package. The package holds:
 * `server.BlsOffloadServer` — hosts a verify backend (the port's device
   mesh, or the CPU oracle when asked for) behind two RPCs, with a
   multi-tenant admission front-end (`offload/tenancy.py`)
-* `resilience` — the lanes' circuit breaker
+* `client.BlsOffloadClient` — an `IBlsVerifier` that ships signature-set
+  frames to one or more hosts: routing by the Status frame, class
+  deadlines, hedging, digest-checked replies, per-endpoint breakers;
+  transport errors FAIL CLOSED (the job rejects, never resolves valid)
+* `audit.OffloadAuditor` — sampled re-verification of the client's
+  verdicts off the hot path, trust scores and quarantine of a lying host
+* `resilience` — the circuit breaker (the lanes' and the client's) and
+  the class deadline budgets
 
-The client (`BlsOffloadClient`) is not ported yet. Stdlib only: importing
-this package loads no torch.
+Transport errors without grpc (a departure): `TransportError` is the
+port's base class of a failed call, with a `code()` from `StatusCode`,
+whose member names are gRPC's status-code names. The client catches
+`transport_errors()`: `TransportError`, plus `grpc.RpcError` once grpc
+has been imported (a dialed stub imports it on its first call), so a
+host without grpc serves in-process and the fault harness
+(`testing/faults.py`) raises `TransportError`s. These three are not in
+`__all__`, which stays the JAX package's. Stdlib only: importing this
+package loads no torch and no grpc.
 
 Wire format (framed, no codegen needed — grpc carries opaque bytes):
   request:  u32le count || count * (pubkey48 || message32 || signature96)
@@ -60,7 +74,9 @@ Wire format (framed, no codegen needed — grpc carries opaque bytes):
 
 from __future__ import annotations
 
+import enum
 import hashlib
+import sys
 from dataclasses import dataclass
 
 from ..crypto.bls.api import SignatureSet
@@ -130,6 +146,62 @@ class OffloadShed(OffloadError):
     def __init__(self, message: str, state: AdmissionState = AdmissionState.REJECT):
         super().__init__(message)
         self.state = state
+
+
+class StatusCode(enum.Enum):
+    """The status codes a failed call carries: the names (and the str,
+    `StatusCode.UNAVAILABLE`) of gRPC's `grpc.StatusCode` members, with
+    no grpc needed to name them."""
+
+    OK = 0
+    CANCELLED = 1
+    UNKNOWN = 2
+    INVALID_ARGUMENT = 3
+    DEADLINE_EXCEEDED = 4
+    NOT_FOUND = 5
+    ALREADY_EXISTS = 6
+    PERMISSION_DENIED = 7
+    RESOURCE_EXHAUSTED = 8
+    FAILED_PRECONDITION = 9
+    ABORTED = 10
+    OUT_OF_RANGE = 11
+    UNIMPLEMENTED = 12
+    INTERNAL = 13
+    UNAVAILABLE = 14
+    DATA_LOSS = 15
+    UNAUTHENTICATED = 16
+
+
+class TransportError(Exception):
+    """A call that failed on its transport (the shape of `grpc.RpcError`
+    the client reads: `code()` and `details()`), raised where no grpc is
+    involved: the fault harness's injected errors."""
+
+    def __init__(self, code: StatusCode, details: str = ""):
+        super().__init__(code, details)
+        self._code = code
+        self._details = details
+
+    def code(self) -> StatusCode:
+        return self._code
+
+    def details(self) -> str:
+        return self._details
+
+    def __str__(self) -> str:
+        return f"{type(self).__name__}({self._code}, {self._details!r})"
+
+
+def transport_errors() -> tuple[type[BaseException], ...]:
+    """The exception types a failed call raises: `TransportError`, and
+    `grpc.RpcError` when grpc is already imported (nothing imports it
+    here). Read at catch time, so a stub that dialed after the client
+    was built is covered."""
+    grpc = sys.modules.get("grpc")
+    rpc_error = getattr(grpc, "RpcError", None)
+    if isinstance(rpc_error, type) and issubclass(rpc_error, BaseException):
+        return (TransportError, rpc_error)
+    return (TransportError,)
 
 
 @dataclass(frozen=True)
