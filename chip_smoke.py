@@ -141,7 +141,23 @@ Phases, in order; any failure exits non-zero and prints no result:
             serves (counted); healed, the client serves. No capture, no
             eager launch, every kernel replayed. Lines start
             `offload-client:`.
-8. htr      the state hashTreeRoot (`state_transition/htr.py` over
+7d. sharded the sharded verify (`verify_signature_sets_sharded`) over
+            every visible GPU, or cuda:0 twice on one GPU. First, outside
+            the counted run: the single launch's verdict on a tampered copy
+            of the merged batch, and `warm_sharded` of the pool's class.
+            Then counts and replays reset: (a) the 2048 merged sets True
+            and the tampered copy False, as the single launch says, each in
+            n_shards + 1 dispatches, 3 timed, sigs/s beside phase 6's; (e)
+            the pool over two lanes with the real collective: 16 range-sync
+            jobs of 128 True in 16 sharded launches with 0 fallbacks, one
+            job with a bad signature False through the per-job retry, no
+            capture, no eager launch; replays read. (b) the graph road's
+            partials limb-equal to the eager road's on the same bits; (c)
+            every Fp launch of the shard and finish graphs at a row count
+            phase 3 checked; (d) each graph's capture and instantiate s,
+            nodes, pool MiB and replay ms (CUDA events); the steps' wall s.
+            Lines start `sharded:`.
+8. htr     the state hashTreeRoot (`state_transition/htr.py` over
             `ssz/device_htr.py` and `ops/sha256.py`), on the card by default
             (mode "auto"): each merkle level of at least 2048 pairs is one
             replay of a CUDA graph captured per pow-2 pair class
@@ -245,9 +261,19 @@ POOL_ROWS = (1, 2, 3, 4, 6, 8, 9, 12, 16, 18, 24, 27, 32, 34, 36, 48, 51, 54, 64
 # path uses one not checked here.
 KZG_ROWS = (1, 2, 4, 6, 8, 9, 12, 16, 18, 24, 32, 36, 48, 54, 64, 72, 128, 256, 512, 1024, 2048,
             4096)
+# SHARD_ROWS: every row count the sharded verify's graphs launch a kernel at
+# with two shards (phase 7d): the shard body (prep legs and partials) at shard
+# classes 1,024 (2,048 sets) and 64 (the pool's 128-set jobs) and the finish at
+# two shards, counted on the CPU by `shard_rows_on_meta`; phase 7d fails if a
+# shard or finish graph launches one that no phase checked.
+SHARD_ROWS = (1, 2, 3, 4, 6, 8, 9, 12, 16, 18, 24, 32, 36, 48, 54, 64, 96, 108, 128, 192, 216,
+              256, 384, 432, 512, 640, 768, 864, 960, 1024, 1152, 1536, 1728, 2048, 2304, 2560,
+              3072, 3456, 3840, 4096, 6144, 6912, 10240, 12288, 13824, 15360, 18432, 24576,
+              27648, 36864, 40960, 61440)
 N_TIMED = (1, 12, 36, 2048, 4096, 6147, 20480, 21120, 21121, 24588, 30720, 73764, 110646,
            122880)
-N_KERNEL_CHECK = tuple(sorted({*N_TIMED, *PREP_ROWS, *MANY_ROWS, *POOL_ROWS, *KZG_ROWS, 2, 15, 16,
+N_KERNEL_CHECK = tuple(sorted({*N_TIMED, *PREP_ROWS, *MANY_ROWS, *POOL_ROWS, *KZG_ROWS,
+                               *SHARD_ROWS, 2, 15, 16,
                                17, 31, 32, 33, 63, 64, 65, 511, 512, 513, 2049, 2112, 2113,
                                4098}))
 N_COMPARE = 110646
@@ -357,6 +383,24 @@ def rows_on_meta(size):
     return count_on_meta(bv._single_launch_verify, bv._warm_inputs(size))
 
 
+def shard_rows_on_meta(shard_class, n_shards):
+    """{kernel: {rows: launches}} of one shard body at `shard_class` rows and
+    of the finish at `n_shards` shards, counted on the CPU with no card
+    (`count_on_meta`)."""
+    import numpy as np
+
+    from lodestar_tpu_torch.models import batch_verify as bv
+    from lodestar_tpu_torch.ops import fp
+
+    shard = count_on_meta(bv._single_launch_shard, bv._warm_inputs(shard_class))
+    finish = count_on_meta(bv._shard_finish_body, (
+        np.zeros((n_shards, 2, 3, 2, fp.LIMBS), np.int32),
+        *(np.zeros((n_shards, 2, fp.LIMBS), np.int32) for _ in range(3)),
+        np.zeros((2, fp.LIMBS), np.int32), np.zeros((2, fp.LIMBS), np.int32)))
+    return {k: {n: shard[k].get(n, 0) + finish[k].get(n, 0)
+                for n in sorted({*shard[k], *finish[k]})} for k in shard}
+
+
 def count_on_meta(body, arrays):
     """{kernel: {rows: launches}} of `body` on `arrays`, counted on the CPU
     with no card: the body runs on meta tensors (shapes only) with the
@@ -440,7 +484,12 @@ def work_per_row(name):
     }[name]
 
 
-def check_kernels(dev):
+def check_kernels(dev, rows=N_KERNEL_CHECK):
+    """Phase 3: each kernel against its plain version, bit for bit, at
+    `rows`, and its device time at the rows of N_TIMED among them. Phase 7d
+    passes the row counts of shard classes outside N_KERNEL_CHECK (a host
+    whose GPU count gives other shard classes than SHARD_ROWS' two); the
+    report is then empty, since N_COMPARE is not among them."""
     import numpy as np
     import torch
 
@@ -453,7 +502,7 @@ def check_kernels(dev):
         plain = getattr(fp, f"plain_{name}")
         max_err = 0
         at_rows = {}
-        for n in N_KERNEL_CHECK:
+        for n in rows:
             args = kernel_inputs(name, n, rng, dev)
             got = kernel(*args)
             torch.cuda.synchronize()
@@ -470,6 +519,9 @@ def check_kernels(dev):
                     f"bound {b_ms * 1e3:.2f} us by {by}, {ms / b_ms:.2f}x the bound")
             if n == N_COMPARE:
                 plain_ms = cuda_ms(lambda: plain(*args), iters=5, warmup=1)
+        if N_COMPARE not in rows:
+            say(f"kernel {name}: bit-exact at N={list(rows)}")
+            continue
         b_ms, by = bound(name, N_COMPARE)
         report[name] = {
             "max_abs_err": max_err,
@@ -480,8 +532,10 @@ def check_kernels(dev):
             "n": N_COMPARE,
             "at_rows": at_rows,
         }
-        say(f"kernel {name}: bit-exact at N={list(N_KERNEL_CHECK)}; at N={N_COMPARE}: "
+        say(f"kernel {name}: bit-exact at N={list(rows)}; at N={N_COMPARE}: "
             f"{report[name]['ms']:.4f} ms (plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms by {by})")
+    if N_COMPARE not in rows:
+        return report
     paths = {}
     for n in N_KERNEL_CHECK:
         paths.setdefault(sq_acc_path(n), []).append(n)
@@ -1986,6 +2040,246 @@ def offload_client(dev, smi, main, served, offloaded):
     return out
 
 
+# --- phase 7d ----------------------------------------------------------------
+# The sharded verify (`verify_signature_sets_sharded`): one batch split into
+# equal row slices over several devices, each shard one replay of a graph per
+# (device, shard class), the finish one replay on the first device. The shard
+# devices are every visible GPU when there are more than one, else cuda:0
+# twice: two shards on one GPU replay one after the other, so on one GPU the
+# phase shows the road is right and what it costs, not a speed-up.
+SHARD_POOL_JOBS = 16  # (e) range-sync jobs of BATCH sets, each sharded over two lanes
+
+
+def replay_ms(g, reps=3):
+    """Mean device time of `reps` replays of a captured graph on its stream
+    (its static inputs as the last call left them), by CUDA events."""
+    import torch
+
+    times = []
+    with torch.cuda.stream(g.stream):
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            g.graph.replay()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+    return sum(times) / len(times)
+
+
+def sharded(dev, smi, main, single):
+    """Phase 7d: the sharded verify on the card, then the pool's sharded bulk
+    road over two lanes with the real collective. Returns its figures and
+    counts."""
+    import asyncio
+    import dataclasses
+
+    import torch
+
+    from lodestar_tpu_torch import graphs
+    from lodestar_tpu_torch.chain.bls import BlsDeviceVerifierPool, VerifySignatureOpts
+    from lodestar_tpu_torch.chain.bls.mesh import MeshLane, VerifierMesh
+    from lodestar_tpu_torch.models import batch_verify as bv
+    from lodestar_tpu_torch.ops import fp_cuda
+    from lodestar_tpu_torch.ops import prep as dp
+    from lodestar_tpu_torch.scheduler import PriorityClass
+
+    t_phase = time.perf_counter()
+    n_gpu = torch.cuda.device_count()
+    devs = [torch.device("cuda", i) for i in range(n_gpu)] if n_gpu > 1 else [dev, dev]
+    n_shards = len(devs)
+    merged_sets = main["merged_sets"]
+    merged = len(merged_sets)
+    size = bv._sharded_size(merged, n_shards)
+    k = size // n_shards
+    say(f"sharded: {n_shards} shards on {[str(d) for d in devs]} "
+        f"({'one per GPU' if n_gpu > 1 else 'two on the one GPU, replayed one after the other'}"
+        f"); {merged} sets padded to {size}, shard class {k}")
+    tampered = list(merged_sets)
+    tampered[5] = dataclasses.replace(merged_sets[5], signature=merged_sets[6].signature)
+    tampered[6] = dataclasses.replace(merged_sets[6], signature=merged_sets[5].signature)
+    shard_cache, finish_cache = bv._SHARD_GRAPHS, bv._SHARD_FINISH_GRAPHS
+    out = {"devices": [str(d) for d in devs], "gpus": n_gpu, "shard_class": k}
+    steps = {}  # wall s of each step of the phase
+
+    def verify(sets):
+        base = dp.prep_launches_total()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ok = bv.verify_signature_sets_sharded(sets, devs)
+        wall = time.perf_counter() - t0
+        if dp.prep_launches_total() - base != n_shards + 1:
+            fail(f"sharded: a verify made {dp.prep_launches_total() - base} dispatches, not "
+                 f"{n_shards + 1}")
+        return ok, wall
+
+    # the single launch's verdict on the tampered copy, and the capture of
+    # the pool's shard class for (e) (`warm_sharded`, as a serving process
+    # with a collective would): both before the sharded road's run, whose
+    # replay counts hold only sharded verifies and the pool's sharded road
+    t0 = time.perf_counter()
+    single_bad = bv.verify_sets_single_launch(tampered, device=devs[0])
+    steps["single_tampered"] = time.perf_counter() - t0
+    if n_gpu > 1:
+        lanes = [MeshLane(i, bv.make_lane_verify_fn(i),
+                          verify_prepared_fn=bv.make_lane_verify_prepared_fn(i),
+                          device=torch.device("cuda", i)) for i in range(2)]
+        collective = bv.make_mesh_sharded_fn()
+    else:
+        lanes = [MeshLane(i, bv.make_lane_verify_fn(0, dev),
+                          verify_prepared_fn=bv.make_lane_verify_prepared_fn(0, dev),
+                          device=dev) for i in range(2)]
+        collective = bv.make_mesh_sharded_fn(devices=[dev, dev])
+    pool_devs = [lane.device for lane in lanes]
+    t0 = time.perf_counter()
+    warmed = bv.warm_sharded(pool_devs, [BATCH])
+    pool_warm_s = steps["pool_warm"] = time.perf_counter() - t0
+    say(f"sharded: warm_sharded({[str(d) for d in pool_devs]}, [{BATCH}]) captured "
+        f"{sorted(warmed)} in {pool_warm_s:.2f} s")
+
+    # (a) verdicts, against the single launch's on the same sets
+    t0 = time.perf_counter()
+    fp_cuda.reset_launches()
+    graphs.reset_replayed()  # the sharded road's run starts here
+    ok, first_s = verify(merged_sets)
+    if ok is not True:
+        fail(f"sharded: the {merged} merged sets verified {ok} (phase 6's single launch: True)")
+    ok_bad, _ = verify(tampered)
+    if ok_bad is not False or single_bad is not False:
+        fail(f"sharded: the tampered copy verified {ok_bad} sharded, {single_bad} single launch")
+    walls = []
+    for i in range(TIMED_RUNS):
+        ok, wall = verify(merged_sets)  # fresh blinding each time
+        if ok is not True:
+            fail(f"sharded: timed run {i} verified {ok}")
+        walls.append(wall)
+    mean = sum(walls) / len(walls)
+    steps["a"] = time.perf_counter() - t0
+    out.update({"first_s": first_s, "walls_s": walls, "sigs_per_s": merged / mean})
+    say(f"sharded: (a) {merged} sets True (first call {first_s:.2f} s with the captures), the "
+        f"tampered copy False, as the single launch says; x{TIMED_RUNS} bytes to verdict "
+        f"{', '.join(f'{w:.3f}' for w in walls)} s, {merged / mean:.1f} sigs/s on {n_gpu} "
+        f"GPU(s) beside phase 6's single launch {single['sigs_per_s']:.1f} on {smi}")
+
+    # (e) the pool's sharded road over two lanes, the real collective
+    t0 = time.perf_counter()
+    mesh = VerifierMesh(lanes, sharded_fn=collective)
+    jobs = [merged_sets[i * BATCH:(i + 1) * BATCH] for i in range(SHARD_POOL_JOBS)]
+    bad_job = list(jobs[0])
+    bad_job[3] = dataclasses.replace(jobs[0][3], signature=jobs[0][4].signature)
+    captures = shard_cache.captures + finish_cache.captures
+    eager_before = dict(fp_cuda.LAUNCHES)
+
+    async def serve():
+        pool = BlsDeviceVerifierPool(mesh=mesh, scheduler_enabled=True)
+        opts = VerifySignatureOpts(priority=PriorityClass.RANGE_SYNC)
+        t0 = time.perf_counter()
+        got = list(await asyncio.gather(*(pool.verify_signature_sets(j, opts) for j in jobs)))
+        wall = time.perf_counter() - t0
+        counts = dict(pool.metrics)
+        bad = await pool.verify_signature_sets(bad_job, opts)
+        after_bad = dict(pool.metrics)
+        await pool.close()
+        return got, wall, counts, bad, after_bad
+
+    got, pool_wall, counts, bad, after_bad = asyncio.run(serve())
+    replayed = dict(graphs.REPLAYED)  # the sharded road's run ends here
+    steps["e"] = time.perf_counter() - t0
+    if got != [True] * SHARD_POOL_JOBS:
+        fail(f"sharded: (e) the pool gave {got}")
+    if counts["sharded_launches"] != SHARD_POOL_JOBS or counts["sharded_fallbacks"] != 0:
+        fail(f"sharded: (e) {counts['sharded_launches']} sharded launches and "
+             f"{counts['sharded_fallbacks']} fallbacks, not {SHARD_POOL_JOBS} and 0")
+    if bad is not False or after_bad["batch_retries"] - counts["batch_retries"] != 1 \
+            or after_bad["sharded_fallbacks"] != 0:
+        fail(f"sharded: (e) the job with a bad signature gave {bad} "
+             f"({after_bad['batch_retries'] - counts['batch_retries']} retries, "
+             f"{after_bad['sharded_fallbacks']} fallbacks)")
+    if mesh.sharded_breaker._failures or any(lane.breaker._failures for lane in lanes):
+        fail("sharded: (e) a breaker shows a failure")
+    if shard_cache.captures + finish_cache.captures != captures:
+        fail("sharded: (e) a graph was captured while the pool served")
+    if dict(fp_cuda.LAUNCHES) != eager_before:
+        fail("sharded: (e) eager kernel launches while the pool served")
+    missing = [name for name in fp_cuda.KERNELS if replayed[name] <= 0]
+    if missing:
+        fail(f"sharded: kernels never launched by a replay on the sharded road: {missing}")
+    out["pool"] = {"jobs": SHARD_POOL_JOBS, "sets": SHARD_POOL_JOBS * BATCH, "wall_s": pool_wall,
+                   "sigs_per_s": SHARD_POOL_JOBS * BATCH / pool_wall, "warm_s": pool_warm_s,
+                   "metrics": after_bad}
+    say(f"sharded: (e) pool over 2 lanes ({[str(d) for d in pool_devs]}), the real collective: "
+        f"{SHARD_POOL_JOBS} range-sync jobs of {BATCH} all True in {pool_wall:.3f} s "
+        f"({SHARD_POOL_JOBS * BATCH / pool_wall:.1f} sigs/s), {counts['sharded_launches']} "
+        f"sharded launches (shard class {BATCH // 2}), {counts['sharded_fallbacks']} fallbacks; "
+        f"one bad signature: False through the per-job retry on one lane; no capture, no eager "
+        f"launch while serving (class captured beforehand by warm_sharded in {pool_warm_s:.2f} "
+        f"s) on {smi}")
+    say(f"sharded: Fp launches replayed over the road {replayed}")
+    out["replayed"] = replayed
+
+    # (b) the graph road's partials against the eager road's, the same bits
+    t0 = time.perf_counter()
+    si = bv.prepare_single_launch_inputs(merged_sets, size=size)
+    parts = bv._shard_replays(si, devs)
+    inputs = bv.build_device_inputs(merged_sets, size=size, device=devs[0], coeff_bits=si.bits,
+                                    prep="on")
+    eager = bv._eager_shard_partials(devs, *inputs)
+    h = inputs[1]
+    for i, (g_part, e_part) in enumerate(zip(parts, eager)):
+        for j, (a, b) in enumerate(zip(g_part[:4], e_part)):
+            if not torch.equal(a, b.cpu()):
+                fail(f"sharded: (b) shard {i}'s partial {j} differs between the graph road and "
+                     f"the eager road")
+    if not (torch.equal(parts[0][4], h[0][0].cpu()) and torch.equal(parts[0][5], h[1][0].cpu())):
+        fail("sharded: (b) the finish's placeholder point differs between the roads")
+    eager_ok = bool(bv._shard_finish(*bv._gather_partials(eager, (h[0][0], h[1][0]), devs[0])))
+    graph_ok = bool(bv._finish_launch(parts, devs[0]))
+    if not (eager_ok and graph_ok and all(bool(p[6]) for p in parts)):
+        fail(f"sharded: (b) finish verdicts graph {graph_ok}, eager {eager_ok}")
+    say(f"sharded: (b) {n_shards} shards' partials (Fp12 product, Jacobian G2 sum) limb-equal "
+        f"between the graph road and device_batch_verify_sharded's eager road on the same "
+        f"bits; both finishes True")
+
+    steps["b"] = time.perf_counter() - t0
+
+    # (c) every Fp launch of the shard and finish graphs at a checked row count
+    t0 = time.perf_counter()
+    shard_graphs = {key: g for key, g in shard_cache.graphs.items()}
+    finish_graphs = {key: g for key, g in finish_cache.graphs.items()}
+    rows = {n for g in (*shard_graphs.values(), *finish_graphs.values())
+            for by in g.rows.values() for n in by}
+    stray = sorted(rows - set(N_KERNEL_CHECK))
+    if stray:
+        if n_shards == 2:
+            fail(f"sharded: (c) graphs launched kernels at row counts phase 3 did not check: "
+                 f"{stray}")
+        check_kernels(dev, stray)
+        say(f"sharded: (c) {n_shards} shards launch at row counts outside SHARD_ROWS: {stray}; "
+            f"each kernel checked bit for bit there")
+    say(f"sharded: (c) every Fp launch of the shard and finish graphs at a row count checked "
+        f"({len(rows)} row counts)")
+
+    # (d) the graphs and their replay times
+    out["graphs"] = {}
+    for label, cache in (("shard", shard_graphs), ("finish", finish_graphs)):
+        for (idx, n), g in sorted(cache.items()):
+            ms = replay_ms(g)
+            info = {**{key: v for key, v in g.info().items() if key != "rows"},
+                    "replay_ms": ms, "launches": g.launches}
+            out["graphs"][f"{label}_{idx}_{n}"] = info
+            say(f"sharded: (d) {label} graph cuda:{idx} class {n}: capture {g.capture_s:.2f} s, "
+                f"instantiate {g.instantiate_s:.2f} s, {g.nodes} nodes, pool "
+                f"{g.pool_bytes / 2**20:.1f} MiB, replay {ms:.1f} ms (CUDA events), Fp "
+                f"launches per replay {sum(g.launches.values())} on {smi}")
+    steps["c_d"] = time.perf_counter() - t0
+    out["steps_s"] = steps
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(f"sharded: phase {out['phase_s']:.1f} s; steps (s) "
+        f"{json.dumps({key: round(v, 1) for key, v in steps.items()})}")
+    return out
+
+
 # --- phase 8 -----------------------------------------------------------------
 # The state hashTreeRoot at BASELINE config 4's size. The HTR path has no
 # hand kernel (the JAX package's `ops/sha256.py` is plain XLA): each level
@@ -2809,6 +3103,8 @@ def main():
     offloaded = phase("offload", offload, dev, smi, main_run, served)
     # 7c. the offload client over two hosts on the card
     clients = phase("client", offload_client, dev, smi, main_run, served, offloaded)
+    # 7d. the sharded verify and the pool's sharded bulk road
+    shard_run = phase("sharded", sharded, dev, smi, main_run, single)
     # 8. the state hashTreeRoot
     hashed = phase("htr", htr, dev, smi)
     # 9. KZG at a mainnet block
@@ -2841,6 +3137,7 @@ def main():
             "serve_replayed": served["replayed"][name],
             "offload_replayed": offloaded["replayed"][name],
             "offload_client_replayed": clients["replayed"][name],
+            "sharded_replayed": shard_run["replayed"][name],
             "kzg_launches": kzged["launches"][name],
             "launches_per_kzg_commitment": kzged["commitment"]["fp_launches_per_replay"][name],
             "launches_per_kzg_commitment_by_rows": kzged["msm_rows"][name],
@@ -2891,6 +3188,7 @@ def main():
                                   if k not in ("replayed", "server")}))
     say("offload-client: " + json.dumps({k: v for k, v in clients.items() if k != "replayed"},
                                         default=str))
+    say("sharded: " + json.dumps({k: v for k, v in shard_run.items() if k != "replayed"}))
     say("htr: " + json.dumps(hashed))
     say("kzg: " + json.dumps({k: v for k, v in kzged.items() if not k.endswith("_rows")}))
     say(f"result: {main_run['sigs_per_s']:.1f} sigs/s verify-only, "

@@ -6,21 +6,27 @@ The PyTorch port's copy of ``lodestar_tpu/chain/bls/mesh.py``:
   `OccupancyTracker`, and its own wedge `CircuitBreaker`, so a sick
   device (a hung runtime, an OOM loop) degrades the pool to an (N-1)-device
   mesh instead of tripping the whole pool.
-* `VerifierMesh` — the lane set. It answers the fleet-level questions:
-  aggregate occupancy over *available* lanes and the per-lane table (a
-  wedged lane drops out of the advertised capacity). The reference's
-  data-parallel sharded verify across idle devices is not ported yet.
+* `VerifierMesh` — the lane set plus an optional data-parallel sharded
+  verify callable (`sharded_fn`: a bulk range-sync/backfill batch runs
+  as one verify split over several idle lanes, each shard on its lane's
+  device, see ``models/batch_verify.verify_signature_sets_sharded``),
+  gated by a breaker of its own. It also answers the fleet-level
+  questions: aggregate occupancy over *available* lanes and the per-lane
+  table (a wedged lane drops out of the advertised capacity).
 * `mesh_launch` — one verify launch with per-lane breaker accounting and
   cross-lane error retry.
 * `build_device_mesh` — production construction from
   ``models/batch_verify.py``'s device enumeration: "auto" (and "on") means
-  CUDA with more than one device; one visible GPU is the single-lane
-  shape. There is no fallback: the lanes run the port's device model, and
-  an import or enumeration problem raises instead of landing on the
-  pure-Python oracle.
+  CUDA with more than one device, one lane per GPU; one visible GPU is the
+  single-lane shape. Unlike the JAX package's, it attaches no sharded
+  collective (see its docstring). There is no fallback: the lanes run the
+  port's device model, and an import or enumeration problem raises instead
+  of landing on the pure-Python oracle.
 
-Placement policy lives in the pool (`chain/bls/pool.py`): each package
-dequeues to the least-occupied free lane.
+Placement policy lives in the pool (`chain/bls/pool.py`): latency-class
+work dequeues to the least-occupied free lane; on a mesh with a
+collective, bulk work shards across idle lanes when at least two are
+free and the batch is large enough to amortize the extra launches.
 """
 
 from __future__ import annotations
@@ -41,6 +47,8 @@ __all__ = [
     "mesh_launch",
     "MESH_MODES",
     "LANE_WEDGE_THRESHOLD",
+    "SHARD_MIN_SETS_PER_LANE",
+    "SHARD_DISABLE_THRESHOLD",
 ]
 
 #: pool-facing mesh modes
@@ -53,6 +61,17 @@ MESH_MODES = ("auto", "on", "off")
 LANE_WEDGE_THRESHOLD = 8
 LANE_WEDGE_RESET_S = 5.0
 LANE_WEDGE_MAX_RESET_S = 60.0
+
+#: a bulk batch shards over at most len(sets)//this lanes — a 32-set
+#: batch across 8 devices would pay 8 shard launches and a finish to save
+#: one small launch (the JAX package's value, tuned on a TPU, where a
+#: shard's time scales with its rows; not measured on several GPUs)
+SHARD_MIN_SETS_PER_LANE = 16
+
+#: consecutive sharded-launch errors before the mesh stops trying the
+#: collective (single-lane launches attribute errors to the exact sick
+#: device; the sharded launch cannot, so it gets its own gate)
+SHARD_DISABLE_THRESHOLD = 3
 
 
 class PreparedSets:
@@ -126,17 +145,28 @@ class MeshLane:
 
 
 class VerifierMesh:
-    """Lane set. Duck-types the occupancy
+    """Lane set + optional sharded collective. Duck-types the occupancy
     interface `AdmissionController` expects (`occupancy()`), reporting
     the MEAN busy fraction over available lanes — the admission
     thresholds (0.75 / 0.95) grade fleet headroom, not "any chip busy".
     With one lane this is exactly that lane's tracker value, so the
     pre-mesh admission behavior is unchanged."""
 
-    def __init__(self, lanes: Sequence[MeshLane]):
+    def __init__(self, lanes: Sequence[MeshLane], *, sharded_fn: Callable | None = None):
         if not lanes:
             raise ValueError("a verifier mesh needs at least one lane")
         self.lanes = list(lanes)
+        #: sharded_fn(sets, device_indices) -> bool over >=2 lanes
+        self.sharded_fn = sharded_fn
+        # gates the collective only: a sharded error cannot name the sick
+        # device, so it must not wedge per-lane breakers — instead repeated
+        # collective failures park the sharded path while single-lane
+        # launches keep attributing errors per device
+        self.sharded_breaker = CircuitBreaker(
+            failure_threshold=SHARD_DISABLE_THRESHOLD,
+            reset_timeout_s=LANE_WEDGE_RESET_S,
+            max_reset_timeout_s=LANE_WEDGE_MAX_RESET_S,
+        )
 
     def __len__(self) -> int:
         return len(self.lanes)
@@ -146,6 +176,9 @@ class VerifierMesh:
         set). May be empty — the pool then fails fast like the pre-mesh
         wedged-device path."""
         return [lane for lane in self.lanes if not lane.wedged]
+
+    def sharding_available(self) -> bool:
+        return self.sharded_fn is not None and not self.sharded_breaker.is_open
 
     def occupancy(self) -> float:
         lanes = self.available() or self.lanes
@@ -264,7 +297,7 @@ def single_lane_mesh(
     verify_prepared_fn: Callable | None = None,
     device=None,
 ) -> VerifierMesh:
-    """The pre-mesh shape: one lane."""
+    """The pre-mesh shape: one lane, no sharded collective."""
     return VerifierMesh(
         [
             MeshLane(
@@ -306,7 +339,17 @@ def build_device_mesh(
     model pinned to `device` (CUDA device 0 when None). Modes "auto" and
     "on" give one lane per CUDA device when more than one is visible.
     Nothing here falls back: a device model that fails to import, or CUDA
-    missing for a CUDA lane, raises."""
+    missing for a CUDA lane, raises.
+
+    No mesh built here has a sharded collective, where the JAX package's
+    multi-device mesh does. On an NVIDIA H100 a shard's graph replay costs
+    nearly what a whole batch's does (a replay is bound by its ~0.4 M node
+    launches, not by its rows), so a bulk job sharded over two GPUs saves
+    little latency and holds two lanes instead of one; the break-even has
+    not been measured on several GPUs, and its shard graphs would be
+    captured while serving. A caller who wants the sharded road builds
+    `VerifierMesh(lanes, sharded_fn=make_mesh_sharded_fn())` and captures
+    its graphs first with `models.batch_verify.warm_sharded`."""
     if mode not in MESH_MODES:
         raise ValueError(f"bls_mesh must be one of {MESH_MODES}, got {mode!r}")
     if mode == "off" or device is not None:

@@ -27,8 +27,11 @@ N-worker thread pool replaced by one device pipeline:
 * **Mesh lanes** (`chain/bls/mesh.py`): the pool serves a `VerifierMesh`
   of per-device launch lanes. One dispatcher waits for a free lane,
   dequeues through the shared priority queue, and places the package:
-  every package goes to the least-occupied free chip (the reference's
-  data-parallel sharded road for bulk batches is not ported yet).
+  latency-class work goes to the least-occupied free chip; on a mesh
+  with a collective (the mesh's `sharded_fn`,
+  `verify_signature_sets_sharded`; `build_device_mesh` attaches none),
+  bulk range-sync/backfill batches big enough to amortize the extra
+  launches go data-parallel across the idle chips.
   With a single visible device the mesh is one lane and the launch
   schedule is bit-identical to the pre-mesh pool (regression-tested).
 * **Wedge detection** (`offload/resilience.CircuitBreaker`): each lane
@@ -82,6 +85,7 @@ from .interface import IBlsVerifier, VerifySignatureOpts
 from .mesh import (
     LANE_WEDGE_THRESHOLD,
     MESH_MODES,
+    SHARD_MIN_SETS_PER_LANE,
     MeshLane,
     PreparedSets,
     VerifierMesh,
@@ -384,6 +388,8 @@ class BlsDeviceVerifierPool(IBlsVerifier):
             "batch_retries": 0,
             "batch_sigs_success": 0,
             "errors": 0,
+            "sharded_launches": 0,
+            "sharded_fallbacks": 0,
         }
 
     @property
@@ -588,12 +594,31 @@ class BlsDeviceVerifierPool(IBlsVerifier):
             self._lane_free.clear()
             await self._lane_free.wait()
 
-    @staticmethod
-    def _pick_placement(free: list[MeshLane]) -> MeshLane:
-        """The least-occupied free lane (a healthy one first). `free` is
-        non-empty by contract (the dispatcher re-waits when a lane wedges
-        out from under it)."""
-        return min(free, key=lambda l: (l.wedged, l.occupancy.occupancy()))
+    def _pick_placement(
+        self, cls: PriorityClass, package: list[_Job], free: list[MeshLane]
+    ) -> tuple[str, list[MeshLane]]:
+        """("sharded", lanes) for a bulk package big enough to amortize
+        the shard launches over >=2 idle healthy lanes; otherwise
+        ("single", [least-occupied free lane]). `free` is non-empty by
+        contract (the dispatcher re-waits when a lane wedges out from
+        under it). Sharded lane sets are occupancy-CHOSEN but
+        index-ORDERED: the shard graphs key on (device, class), so a
+        canonical ordering gives one row slice per lane whatever the
+        occupancy order."""
+        if (
+            self.scheduler_enabled
+            and cls in BULK_CLASSES
+            and self.mesh.sharding_available()
+        ):
+            healthy_free = [lane for lane in free if not lane.wedged]
+            n_sets = sum(len(j.sets) for j in package)
+            want = n_sets // SHARD_MIN_SETS_PER_LANE
+            if len(healthy_free) >= 2 and want >= 2:
+                chosen = sorted(healthy_free, key=lambda l: l.occupancy.occupancy())
+                picked = chosen[: min(len(chosen), want)]
+                return "sharded", sorted(picked, key=lambda l: l.index)
+        lane = min(free, key=lambda l: (l.wedged, l.occupancy.occupancy()))
+        return "single", [lane]
 
     async def _next_package(self) -> tuple[list[_Job], PriorityClass]:
         """Dequeue one job and drain immediately-available work into the
@@ -637,16 +662,17 @@ class BlsDeviceVerifierPool(IBlsVerifier):
                 await self._lane_free.wait()
                 if self._closed:
                     raise asyncio.CancelledError("bls pool closed")
-            lane = self._pick_placement(free)
+            mode, lanes = self._pick_placement(cls, package, free)
         except asyncio.CancelledError:
             err = asyncio.CancelledError("bls pool closed")
             for j in package:
                 if not j.future.done():
                     j.future.set_exception(err)
             raise
-        lane.inflight += 1
+        for lane in lanes:
+            lane.inflight += 1
         task = asyncio.get_event_loop().create_task(
-            self._launch(package, lane, prepped=prepped)
+            self._launch(package, mode, lanes, prepped=prepped)
         )
         self._launch_tasks.add(task)
         task.add_done_callback(self._launch_tasks.discard)
@@ -686,9 +712,8 @@ class BlsDeviceVerifierPool(IBlsVerifier):
                 raise
             try:
                 if self.scheduler_enabled and cls in BULK_CLASSES:
-                    # bulk preps inline exactly like the unpipelined
-                    # pool, as in the reference (whose collective launch
-                    # needs the raw sets): the two launch schedules match
+                    # bulk may shard across lanes; the collective launch
+                    # preps inline exactly like the unpipelined pool
                     prep = None
                 else:
                     prep = loop.run_in_executor(
@@ -815,17 +840,36 @@ class BlsDeviceVerifierPool(IBlsVerifier):
         with self._overlap.verify():
             fn(*args)
 
+    def _release_lanes_early(self, to_release: list[MeshLane], held: list[MeshLane]) -> None:
+        """Loop-side early release: the sharded fallback returns unused
+        lanes to the dispatcher before its (possibly long) single-lane
+        retry finishes. `held` is the launch's live accounting — the
+        finally below decrements exactly what is still held."""
+        for lane in to_release:
+            if lane in held:
+                held.remove(lane)
+                lane.inflight -= 1
+        self._lane_free.set()
+
     async def _launch(
         self,
         package: list[_Job],
-        lane: MeshLane,
+        mode: str,
+        lanes: list[MeshLane],
         prepped: _PreppedPackage | None = None,
     ) -> None:
+        held = list(lanes)  # guarded by: event-loop (early releases and the finally both run on the loop)
         try:
-            await asyncio.get_event_loop().run_in_executor(
-                None, self._with_verify_window,
-                self._verify_package, package, lane, prepped,
-            )
+            if mode == "sharded":
+                await asyncio.get_event_loop().run_in_executor(
+                    None, self._with_verify_window,
+                    self._verify_package_sharded, package, lanes, held,
+                )
+            else:
+                await asyncio.get_event_loop().run_in_executor(
+                    None, self._with_verify_window,
+                    self._verify_package, package, lanes[0], prepped,
+                )
         except asyncio.CancelledError:
             # close() cancels launch tasks; if the executor work item
             # had not STARTED yet it never runs and nobody else will
@@ -843,7 +887,12 @@ class BlsDeviceVerifierPool(IBlsVerifier):
                 if not j.future.done():
                     j.future.set_exception(e)
         finally:
-            lane.inflight -= 1
+            for lane in held:
+                lane.inflight -= 1
+            # clear so a LATE _release_lanes_early (scheduled by an
+            # executor thread that outlives a cancelled launch task)
+            # finds nothing left to double-decrement
+            held.clear()
             self._lane_free.set()
 
     # -- device launches (executor threads) ------------------------------------
@@ -883,6 +932,7 @@ class BlsDeviceVerifierPool(IBlsVerifier):
         package: list[_Job],
         lane: MeshLane,
         prepped: _PreppedPackage | None = None,
+        counted: bool = False,
     ) -> None:
         """Runs in a thread executor (device dispatch releases the GIL).
 
@@ -892,10 +942,13 @@ class BlsDeviceVerifierPool(IBlsVerifier):
         road always re-preps INLINE (fresh blinding, fresh prep — one
         bad signature can't poison its neighbors, and a stale staged
         prep can't poison the retry)."""
-        self.metrics["jobs_started"] += len(package)
-        self.metrics["sig_sets_started"] += sum(len(j.sets) for j in package)
-        for j in package:
-            slo.job_launch(j.slo)
+        if not counted:
+            self.metrics["jobs_started"] += len(package)
+            self.metrics["sig_sets_started"] += sum(len(j.sets) for j in package)
+            # SLO launch stamp once per job: the sharded fallback road
+            # (counted=True) already stamped at its collective launch
+            for j in package:
+                slo.job_launch(j.slo)
 
         # tracing work (incl. the clock reads) only when some job in the
         # package was submitted under an active trace — the disabled path
@@ -981,6 +1034,92 @@ class BlsDeviceVerifierPool(IBlsVerifier):
                     )
                 if not j.future.done():
                     j.future.get_loop().call_soon_threadsafe(self._reject, j, e)
+
+    def _verify_package_sharded(
+        self, package: list[_Job], lanes: list[MeshLane], held: list[MeshLane] | None = None
+    ) -> None:
+        """One data-parallel launch over idle lanes (executor thread).
+        A collective ERROR cannot name the sick device, so it feeds the
+        mesh's sharded breaker (parking the collective path) and the
+        package degrades to the attributable single-lane path; an
+        invalid VERDICT takes the same retry road the RLC batch does —
+        re-verified per job so one bad signature can't poison its
+        package (and so a lying collective can't be weaker than the
+        single-device policy)."""
+        self.metrics["jobs_started"] += len(package)
+        self.metrics["sig_sets_started"] += sum(len(j.sets) for j in package)
+        for j in package:
+            slo.job_launch(j.slo)
+        all_sets = [s for j in package for s in j.sets]
+        traced = any(j.trace_parent is not None for j in package)
+        if traced:
+            launch_ns = time.monotonic_ns()
+            for j in package:
+                if j.trace_parent is not None:
+                    tracing.record(
+                        j.trace_parent, "bls_buffer_wait", j.added_ns, launch_ns,
+                        {"sets": len(j.sets)},
+                    )
+        t0 = time.monotonic_ns() if traced else 0
+        try:
+            with contextlib.ExitStack() as stack:
+                for lane in lanes:
+                    stack.enter_context(lane.occupancy.launch())
+                ok = bool(
+                    self.mesh.sharded_fn(all_sets, [lane.index for lane in lanes])
+                )
+            self.mesh.sharded_breaker.record_success()
+            self.metrics["sharded_launches"] += 1
+            for lane in lanes:
+                lane.launches += 1
+        except Exception:
+            self.mesh.sharded_breaker.record_failure()
+            self.metrics["sharded_fallbacks"] += 1
+            self.metrics["batch_retries"] += 1
+            if traced:
+                self._trace_launch(
+                    package, t0, len(all_sets), "sharded_error",
+                    ",".join(lane.label for lane in lanes),
+                    lane=",".join(str(lane.index) for lane in lanes),
+                )
+            fallback = min(lanes, key=lambda l: l.occupancy.occupancy())
+            self._release_unused(lanes, fallback, held, package)
+            self._verify_package(package, fallback, counted=True)
+            return
+        if traced:
+            self._trace_launch(
+                package, t0, len(all_sets), "sharded",
+                ",".join(lane.label for lane in lanes),
+                lane=",".join(str(lane.index) for lane in lanes),
+            )
+        if ok:
+            self.metrics["batch_sigs_success"] += len(all_sets)
+            for j in package:
+                self._resolve(j, True)
+        else:
+            self.metrics["batch_retries"] += 1
+            fallback = min(lanes, key=lambda l: l.occupancy.occupancy())
+            self._release_unused(lanes, fallback, held, package)
+            self._verify_package(package, fallback, counted=True)
+
+    def _release_unused(
+        self,
+        lanes: list[MeshLane],
+        fallback: MeshLane,
+        held: "list[MeshLane] | None",
+        package: list[_Job],
+    ) -> None:
+        """Executor-side entry to the loop-side early release: the
+        sharded fallback keeps ONE lane for its (possibly long)
+        single-lane retry — the other lanes go back to the dispatcher
+        now instead of idling behind this package's finally."""
+        if held is None:
+            return
+        unused = [lane for lane in lanes if lane is not fallback]
+        if unused:
+            package[0].future.get_loop().call_soon_threadsafe(
+                self._release_lanes_early, unused, held
+            )
 
     def _trace_unit_prep(self, jobs: list[_Job], staged, t0: int) -> None:
         """`bls_prep` span for one launch unit: from the thread-local

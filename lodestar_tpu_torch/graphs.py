@@ -122,7 +122,7 @@ class GraphCache:
     def __init__(self, fn):
         self.fn = fn
         self.__name__ = fn.__name__  # the dispatch seam's program name
-        self.graphs: dict[tuple[int, int], Graph] = {}  # guarded by: _table_lock (insertion)
+        self.graphs: dict[tuple[int, int], Graph] = {}  # guarded by: _table_lock
         self.captures = 0  # graphs captured since construction; guarded by: _table_lock
         self._table_lock = threading.Lock()
         self._class_locks: dict[tuple[int, int], threading.Lock] = {}  # guarded by: _table_lock
@@ -147,7 +147,8 @@ class GraphCache:
         class_lock, device_lock = self._locks(key)
         class_lock.acquire()
         try:
-            g = self.graphs.get(key)
+            with self._table_lock:
+                g = self.graphs.get(key)
             if g is None:
                 with device_lock, torch.cuda.device(idx):  # captures on a device are exclusive
                     g = self._capture(torch.device("cuda", idx), arrays)
@@ -179,7 +180,9 @@ class GraphCache:
         idx = self._index(device)
         out = {}
         for size in classes:
-            if (idx, size) in self.graphs:
+            with self._table_lock:
+                have = (idx, size) in self.graphs
+            if have:
                 continue
             g, class_lock = self._graph(idx, make_inputs(size))
             class_lock.release()

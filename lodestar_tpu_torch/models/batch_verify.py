@@ -32,6 +32,26 @@ schedule and its single-launch path:
   its reference. A capture, replay or body error propagates: nothing
   falls back to the split schedule.
 
+* **Sharded** (`verify_signature_sets_sharded`, `device_batch_verify_sharded`,
+  `make_mesh_sharded_fn`): one batch split into equal contiguous row
+  slices over several devices, the counterpart of the JAX package's
+  `shard_map` over its "data" axis. Each shard does its blinded scalar
+  muls, its masked G2 fold, its Miller loops and its Fp12 product
+  (`_shard_partials`); the tiny partials move to the home device
+  (`devices[0]`), which folds them and runs the (-g1, S_agg) Miller loop
+  and the one final exponentiation (`_shard_finish`). The JAX program
+  runs that tail on every chip after an `all_gather`; here it runs once,
+  with the same verdict. With the single launch active (the default on
+  CUDA) each shard is the prep legs plus its partials as one replay of a
+  graph per (device, shard class), the shards on different devices
+  replayed at once from threads of their own, then the finish is one
+  replay on the home device: n_shards + 1 counted dispatches. On the CPU
+  the same bodies run eagerly. A shard or finish error propagates.
+  `warm_sharded` captures a device list's shard and finish graphs for the
+  batch sizes its caller names, before it serves. The JAX package's
+  `_warm_sharded_cache_subprocess` works around its persistent compile
+  cache and has no counterpart; its
+  `make_lane_verify_single_fn` is not ported (one lane callable).
 * **Serving** (`make_lane_verify_fn`, `make_lane_verify_prepared_fn`,
   `prepare_inputs_for_lane`, `warm_single_launch`): the entry points the
   verifier pool (``chain/bls/pool.py``) and its lane mesh call, each
@@ -54,6 +74,7 @@ tests can feed two implementations the same bits.
 
 from __future__ import annotations
 
+import concurrent.futures
 import functools
 import os
 import threading
@@ -91,6 +112,10 @@ __all__ = [
     "inputs_from_numpy",
     "device_batch_verify",
     "device_batch_verify_many",
+    "device_batch_verify_sharded",
+    "verify_signature_sets_sharded",
+    "make_mesh_sharded_fn",
+    "warm_sharded",
     "make_synthetic_sets",
     "verify_signature_sets_device",
     "SingleLaunchInputs",
@@ -548,6 +573,18 @@ def device_batch_verify_many(pk, h, sig, coeff_bits, mask) -> torch.Tensor:
     return _verify_body(pk[0], pk[1], h[0], h[1], sig[0], sig[1], coeff_bits, mask)
 
 
+def _single_launch_prep(pk_x_std, pk_sign, sig_x_std, sig_sign, lo, hi):
+    """The prep legs of the single-launch bodies: the fused prep schedule's
+    field stage, subgroup stage and hash finish on the host byte stage's
+    arrays. Returns (pk_x, pk_y, pk_ok, sig_x, sig_y, sig_ok, h_x, h_y)."""
+    pk_x, pk_y, pk_curve, sig_x, sig_y, sig_curve, q0, q1 = dp._prep_field_stage(
+        pk_x_std, pk_sign, sig_x_std, sig_sign, lo, hi
+    )
+    pk_ok, sig_ok = dp._prep_subgroup_stage(pk_x, pk_y, pk_curve, sig_x, sig_y, sig_curve)
+    h_x, h_y = dp.hash_finish(q0, q1)
+    return pk_x, pk_y, pk_ok, sig_x, sig_y, sig_ok, h_x, h_y
+
+
 def _single_launch_verify(pk_x_std, pk_sign, sig_x_std, sig_sign, lo, hi, struct_ok,
                           coeff_bits, mask):
     """The single-launch body: compressed-point limbs and hash-to-field
@@ -562,11 +599,9 @@ def _single_launch_verify(pk_x_std, pk_sign, sig_x_std, sig_sign, lo, hi, struct
     body makes no host sync and no copy from host memory: on CUDA it is
     captured as one graph per size class. `batch_valid` tells a structural
     reject from a failed pairing check; both are a final False."""
-    pk_x, pk_y, pk_curve, sig_x, sig_y, sig_curve, q0, q1 = dp._prep_field_stage(
+    pk_x, pk_y, pk_ok, sig_x, sig_y, sig_ok, h_x, h_y = _single_launch_prep(
         pk_x_std, pk_sign, sig_x_std, sig_sign, lo, hi
     )
-    pk_ok, sig_ok = dp._prep_subgroup_stage(pk_x, pk_y, pk_curve, sig_x, sig_y, sig_curve)
-    h_x, h_y = dp.hash_finish(q0, q1)
     rlc_ok = _verify_body(pk_x, pk_y, h_x, h_y, sig_x, sig_y, coeff_bits, mask)
     batch_valid = torch.all((struct_ok & pk_ok & sig_ok) | ~mask)
     return batch_valid & rlc_ok, batch_valid
@@ -574,6 +609,216 @@ def _single_launch_verify(pk_x_std, pk_sign, sig_x_std, sig_sign, lo, hi, struct
 
 #: the single-launch body as one CUDA graph per (device, size class)
 _SINGLE_LAUNCH_GRAPHS = GraphCache(_single_launch_verify)
+
+
+# --- sharded verification over several devices -----------------------------------
+
+
+def _shard_partials(pk_x, pk_y, h_x, h_y, sig_x, sig_y, coeff_bits, mask):
+    """One shard's local half of the sharded verify (the JAX `shard_fn`
+    before its `all_gather`): blinded scalar muls, the masked G2 fold of
+    the blinded signatures (padded rows are infinity), the Miller loops of
+    the blinded pubkeys against the message points (padded rows get the -g1
+    generator and the shard's message 0, and the fold drops them), and the
+    masked Fp12 product. Returns (f, S_x, S_y, S_z): the shard's Fp12
+    product and its Jacobian G2 partial sum."""
+    dev = pk_x.device
+    one1 = fp.one_mont((), dev)
+    one2 = tw.fp2_one((), dev)
+    rpk = cv.scalar_mul_var(cv.F1, (pk_x, pk_y), coeff_bits, one1)
+    rsig = cv.scalar_mul_var(cv.F2, (sig_x, sig_y), coeff_bits, one2)
+    mcol = mask[:, None, None]
+    rsig = (rsig[0], rsig[1], torch.where(mcol, rsig[2], torch.zeros_like(rsig[2])))
+    local_sig = cv.fold_sum(cv.F2, rsig)
+    rpk_aff = cv.jac_to_affine_batch(cv.F1, rpk)
+    neg_g1_x, neg_g1_y = _neg_g1_on(dev)
+    p_x = torch.where(mask[:, None], rpk_aff[0], neg_g1_x)
+    p_y = torch.where(mask[:, None], rpk_aff[1], neg_g1_y)
+    q_x = torch.where(mcol, h_x, h_x[0])
+    q_y = torch.where(mcol, h_y, h_y[0])
+    fs = prg.miller_loop((p_x, p_y), (q_x, q_y))
+    local_f = prg.fp12_product_fold(fs, mask=mask)
+    return (local_f, *local_sig)
+
+
+def _shard_finish(all_f, sig_x, sig_y, sig_z, q0_x, q0_y):
+    """The sharded verify's tail on the gathered partials (the JAX program
+    after its `all_gather`): the product of the n shard products, the fold
+    of the n partial G2 sums to S_agg, the (-g1, S_agg) Miller loop on one
+    row (when S_agg is infinity the pair is dropped, its placeholder Q
+    being message 0 of the first shard, `q0`), one final exponentiation
+    and the == 1 predicate. Returns a 0-d bool tensor."""
+    dev = all_f.device
+    f = prg.fp12_product_fold(all_f)
+    s_agg = cv.fold_sum(cv.F2, (sig_x, sig_y, sig_z))
+    s_aff = cv.jac_to_affine_batch(cv.F2, tuple(c[None] for c in s_agg))
+    s_inf = cv.jac_is_inf(cv.F2, s_agg)
+    fin_q_x = torch.where(s_inf, q0_x, s_aff[0][0])
+    fin_q_y = torch.where(s_inf, q0_y, s_aff[1][0])
+    neg_g1_x, neg_g1_y = _neg_g1_on(dev)
+    f_fin = prg.miller_loop((neg_g1_x[None], neg_g1_y[None]), (fin_q_x[None], fin_q_y[None]))
+    f_fin = torch.where(s_inf, tw.fp12_one((1,), dev), f_fin)
+    f = tw.fp12_mul(f, f_fin[0])
+    return tw.fp12_eq_one(prg.final_exponentiation(f))
+
+
+def _shard_finish_body(all_f, sig_x, sig_y, sig_z, q0_x, q0_y):
+    """`_shard_finish` as a graph body: its verdict as a 1-tuple."""
+    return (_shard_finish(all_f, sig_x, sig_y, sig_z, q0_x, q0_y),)
+
+
+def _single_launch_shard(pk_x_std, pk_sign, sig_x_std, sig_sign, lo, hi, struct_ok,
+                         coeff_bits, mask):
+    """One shard of the single-launch sharded verify: the single-launch
+    body's prep legs, then `_shard_partials`, with no host sync (on CUDA one
+    graph per (device, shard class)). Returns (f, S_x, S_y, S_z, q0_x, q0_y,
+    batch_valid): the partials, the shard's message 0 and whether every
+    unmasked row of the shard passed prep's checks."""
+    pk_x, pk_y, pk_ok, sig_x, sig_y, sig_ok, h_x, h_y = _single_launch_prep(
+        pk_x_std, pk_sign, sig_x_std, sig_sign, lo, hi
+    )
+    partials = _shard_partials(pk_x, pk_y, h_x, h_y, sig_x, sig_y, coeff_bits, mask)
+    batch_valid = torch.all((struct_ok & pk_ok & sig_ok) | ~mask)
+    return (*partials, h_x[0], h_y[0], batch_valid)
+
+
+#: one shard of the single-launch sharded verify, one CUDA graph per (device, shard class)
+_SHARD_GRAPHS = GraphCache(_single_launch_shard)
+#: the sharded verify's finish, one CUDA graph per (device, shard count)
+_SHARD_FINISH_GRAPHS = GraphCache(_shard_finish_body)
+
+
+def _sharded_size(n: int, n_shards: int) -> int:
+    """The JAX package's padding rule: the pow-2 size class, at least one
+    row a shard, rounded up to a multiple of the shard count."""
+    size = max(pad_pow2(n), n_shards)
+    if size % n_shards:
+        size += n_shards - size % n_shards
+    return size
+
+
+def _shard_slices(size: int, n_shards: int) -> list[slice]:
+    """Contiguous equal row slices, one a shard (`P("data")`'s layout)."""
+    if size % n_shards:
+        raise ValueError(f"{size} rows do not split into {n_shards} equal shards")
+    k = size // n_shards
+    return [slice(i * k, (i + 1) * k) for i in range(n_shards)]
+
+
+def _eager_shard_partials(devices, pk, h, sig, coeff_bits, mask) -> list[tuple]:
+    """`_shard_partials` of each shard's row slice on its device, eagerly."""
+    cols = (pk[0], pk[1], h[0], h[1], sig[0], sig[1], coeff_bits, mask)
+    return [_shard_partials(*(c[sl].to(dev) for c in cols))
+            for dev, sl in zip(devices, _shard_slices(mask.shape[0], len(devices)))]
+
+
+def _gather_partials(parts, q0, home) -> tuple:
+    """The shards' partials stacked on `home`, with the placeholder `q0`:
+    `_shard_finish`'s arguments."""
+    stacked = tuple(torch.stack([p[i].to(home) for p in parts]) for i in range(4))
+    return (*stacked, q0[0].to(home), q0[1].to(home))
+
+
+def device_batch_verify_sharded(devices, pk, h, sig, coeff_bits, mask) -> torch.Tensor:
+    """Sharded verification core on prepared inputs (the `build_device_inputs`
+    layout; N rows a multiple of the device count): contiguous equal row
+    slices, one per device of `devices` (the counterpart of the JAX mesh),
+    `_shard_partials` on each slice's device, the partials moved to
+    `devices[0]` with `.to()`, then `_shard_finish` there. Runs eagerly;
+    the reference of the single-launch shard road. Returns a 0-d bool
+    tensor on `devices[0]`."""
+    devs = [resolve_device(d) for d in devices]
+    if not devs:
+        raise ValueError("sharded verify needs at least one device")
+    if mask.dim() != 1:
+        raise ValueError(f"mask must have shape (N,), got {tuple(mask.shape)}")
+    parts = _eager_shard_partials(devs, pk, h, sig, coeff_bits, mask)
+    return _shard_finish(*_gather_partials(parts, (h[0][0], h[1][0]), devs[0]))
+
+
+def _shard_launch(dev: torch.device, arrays) -> tuple:
+    """ONE counted dispatch of the shard body on `dev`: on CUDA a replay of
+    the (device, shard class) graph (captured on its first call), elsewhere
+    the body run eagerly."""
+    if dev.type == "cuda":
+        # a shard class is size / n_shards: a power of two unless the device
+        # count is not (three GPUs); the cache keys on the leading dimension,
+        # so each class is one capture either way
+        return dp._dispatch(_SHARD_GRAPHS, dev, *arrays)
+    return dp._dispatch(_single_launch_shard, *(torch.as_tensor(np.ascontiguousarray(a), device=dev)
+                                                for a in arrays))
+
+
+def _shard_replays(si: SingleLaunchInputs, devices) -> list[tuple]:
+    """Every shard's `_single_launch_shard` outputs (host tensors on CUDA),
+    one counted dispatch a shard. When the shards span several CUDA devices
+    each is issued from a thread of its own, so they replay at once (the
+    host waits for each replay's read, and the graph's class lock keeps two
+    shards of one device in turn); an error in any shard propagates once
+    all have ended. Shards of one device run in turn on the calling
+    thread."""
+    arrays = (*si.arrays, si.bits, si.mask)
+    jobs = [(dev, tuple(a[sl] for a in arrays))
+            for dev, sl in zip(devices, _shard_slices(len(si.mask), len(devices)))]
+    if len(set(devices)) > 1 and any(dev.type == "cuda" for dev in devices):
+        with concurrent.futures.ThreadPoolExecutor(max_workers=len(jobs)) as ex:
+            futures = [ex.submit(_shard_launch, dev, a) for dev, a in jobs]
+        return [f.result() for f in futures]
+    return [_shard_launch(dev, a) for dev, a in jobs]
+
+
+def _finish_launch(parts, home: torch.device) -> torch.Tensor:
+    """ONE counted dispatch of the finish on the shards' partials, on `home`:
+    a replay of the (device, shard count) finish graph on CUDA, else
+    eagerly. Returns the 0-d bool verdict."""
+    args = _gather_partials([p[:4] for p in parts], parts[0][4:6], torch.device("cpu"))
+    if home.type == "cuda":
+        (ok,) = dp._dispatch(_SHARD_FINISH_GRAPHS, home, *(a.numpy() for a in args))
+    else:
+        (ok,) = dp._dispatch(_shard_finish_body, *(a.to(home) for a in args))
+    return ok
+
+
+def _verify_sharded_prepared(si: SingleLaunchInputs, devices) -> bool:
+    """The single-launch shard road on host-staged inputs: n_shards + 1
+    counted dispatches (the shards, then the finish on `devices[0]`); the
+    verdict is every shard's batch_valid and the finish's. Errors
+    propagate (no fallback)."""
+    parts = _shard_replays(si, devices)
+    verdict = _finish_launch(parts, devices[0])
+    for name, t in [("verdict", verdict)] + [("batch_valid", p[6]) for p in parts]:
+        _check_bool0d(f"sharded {name}", t)
+    valid = all(bool(p[6]) for p in parts)
+    if not valid:
+        _note_rejected()
+    return valid and bool(verdict)
+
+
+def verify_signature_sets_sharded(sets: list[SignatureSet], devices, coeff_bits=None) -> bool:
+    """End-to-end data-parallel batch verify over `devices` (torch devices,
+    the counterpart of the JAX mesh; CUDA devices raise without CUDA). The
+    batch pads to the JAX package's size: the pow-2 class, at least one row
+    a device, a multiple of the device count. Where `single_launch_active`
+    resolves true for `devices[0]` (the default on CUDA): the host byte
+    stage once, then one shard body a device and the finish
+    (`n_shards + 1` counted dispatches). Otherwise `build_device_inputs`
+    on `devices[0]`, then `device_batch_verify_sharded`. `coeff_bits`
+    ((size, 64), MSB first) replaces the fresh blinding. A wrong-length
+    encoding is False with zero dispatches; a shard or finish error
+    raises."""
+    devs = [resolve_device(d) for d in devices]
+    if not devs:
+        raise ValueError("sharded verify needs at least one device")
+    size = _sharded_size(len(sets), len(devs))
+    if single_launch_active(device=devs[0]):
+        si = prepare_single_launch_inputs(sets, coeff_bits=coeff_bits, size=size)
+        if si is None:
+            return False
+        return _verify_sharded_prepared(si, devs)
+    inputs = build_device_inputs(sets, size=size, device=devs[0], coeff_bits=coeff_bits)
+    if inputs is None:
+        return False
+    return bool(device_batch_verify_sharded(devs, *inputs))
 
 
 def make_synthetic_sets(n: int, seed: int = 1) -> list[SignatureSet]:
@@ -627,10 +872,12 @@ class SingleLaunchInputs:
         self.n = n
 
 
-def prepare_single_launch_inputs(sets: list[SignatureSet], coeff_bits=None):
+def prepare_single_launch_inputs(sets: list[SignatureSet], coeff_bits=None,
+                                 size: int | None = None):
     """The host byte stage of the single-launch path: flag parsing, limb
     unpacking, expand_message_xmd and fresh blinding bits (or the given
-    `coeff_bits`, (size, 64) MSB first), with zero dispatches. Returns
+    `coeff_bits`, (size, 64) MSB first), with zero dispatches, on rows
+    padded to `size` (default: the pow-2 size class). Returns
     SingleLaunchInputs, or None for an empty batch or a set with a field
     that is not bytes or an encoding of the wrong length (a final False,
     never a dispatch)."""
@@ -638,7 +885,10 @@ def prepare_single_launch_inputs(sets: list[SignatureSet], coeff_bits=None):
         return None
     n = len(sets)
     t0 = time.monotonic_ns()
-    size = pad_pow2(n)
+    if size is None:
+        size = pad_pow2(n)
+    if size < n:
+        raise ValueError("pad size smaller than batch")
     parsed = _parse_host_arrays(sets, size)
     if parsed is None:
         _note_prep("single_launch", n, t0, rejected=True)
@@ -652,6 +902,13 @@ def prepare_single_launch_inputs(sets: list[SignatureSet], coeff_bits=None):
     arrays = (pk_limbs, pk_sign, sig_limbs, sig_sign, lo, hi, pk_struct & sig_struct)
     _note_prep("single_launch", n, t0)
     return SingleLaunchInputs(arrays, bits, mask, n)
+
+
+def _check_bool0d(label: str, t) -> None:
+    """A dispatch's output must be a 0-d bool tensor; anything else raises."""
+    if not isinstance(t, torch.Tensor) or t.shape != () or t.dtype != torch.bool:
+        raise RuntimeError(f"{label} anomaly: "
+                           f"{getattr(t, 'shape', None)}/{getattr(t, 'dtype', type(t))}")
 
 
 def _verify_single_prepared(si: SingleLaunchInputs, device=None) -> bool:
@@ -671,9 +928,7 @@ def _verify_single_prepared(si: SingleLaunchInputs, device=None) -> bool:
                                      for a in args)
         )
     for name, t in (("verdict", verdict), ("batch_valid", batch_valid)):
-        if not isinstance(t, torch.Tensor) or t.shape != () or t.dtype != torch.bool:
-            raise RuntimeError(f"single-launch {name} anomaly: "
-                               f"{getattr(t, 'shape', None)}/{getattr(t, 'dtype', type(t))}")
+        _check_bool0d(f"single-launch {name}", t)
     if not bool(batch_valid):
         _note_rejected()
     return bool(verdict)
@@ -763,6 +1018,26 @@ def make_lane_verify_prepared_fn(device_index: int, device=None):
     return lane_verify_prepared
 
 
+def make_mesh_sharded_fn(devices=None):
+    """The mesh's collective: `sharded_verify(sets, device_indices)` runs
+    `verify_signature_sets_sharded` over the lanes named by
+    `device_indices`, in sorted (canonical) order, so an occupancy-ordered
+    subset gives the same row slice to each lane. Index `i` is
+    `devices[i]` when `devices` is given (tests pass "cpu" lanes; two
+    lanes may name one GPU), else CUDA device `i`. Raises below two
+    devices."""
+
+    def sharded_verify(sets: list[SignatureSet], device_indices) -> bool:
+        picked = sorted(device_indices)
+        if len(picked) < 2:
+            raise ValueError("sharded verify needs at least two devices")
+        devs = [torch.device(devices[i]) if devices is not None else torch.device("cuda", i)
+                for i in picked]
+        return verify_signature_sets_sharded(sets, devs)
+
+    return sharded_verify
+
+
 @functools.lru_cache(maxsize=1)
 def _warm_set() -> tuple[SignatureSet, ...]:
     return tuple(make_synthetic_sets(1, seed=1))
@@ -786,3 +1061,37 @@ def warm_single_launch(classes, device=None) -> dict[int, dict]:
     {class: {capture_s, instantiate_s, nodes, pool_bytes, rows}} for the
     classes captured by this call."""
     return _SINGLE_LAUNCH_GRAPHS.warm(resolve_device(device), classes, _warm_inputs)
+
+
+def warm_sharded(devices, sizes) -> dict[tuple, dict]:
+    """Capture the graphs `verify_signature_sets_sharded(sets, devices)`
+    replays for a batch of each size in `sizes` (set counts; the JAX
+    padding rule gives the shard class), where they are missing: each CUDA
+    device's shard graph, then the finish graph on `devices[0]`, so a mesh
+    with a collective serves with no capture. Devices that are not CUDA run
+    the bodies eagerly and have nothing to capture. Returns
+    {("shard" or "finish", device index, class): Graph.info()} for the
+    graphs captured by this call."""
+    devs = [resolve_device(d) for d in devices]
+    if len(devs) < 2:
+        raise ValueError("sharded verify needs at least two devices")
+    out = {}
+    for n in sizes:
+        k = _sharded_size(n, len(devs)) // len(devs)
+        for dev in dict.fromkeys(d for d in devs if d.type == "cuda"):
+            for c, info in _SHARD_GRAPHS.warm(dev, [k], _warm_inputs).items():
+                out[("shard", dev.index, c)] = info
+        home = devs[0]
+        if home.type != "cuda":
+            continue
+
+        def finish_inputs(n_shards, k=k):
+            # one shard's partials (a replay of the shard graph just
+            # warmed), as many times as there are shards
+            part = _SHARD_GRAPHS(home, *_warm_inputs(k))
+            args = _gather_partials([part[:4]] * n_shards, part[4:6], torch.device("cpu"))
+            return tuple(a.numpy() for a in args)
+
+        for c, info in _SHARD_FINISH_GRAPHS.warm(home, [len(devs)], finish_inputs).items():
+            out[("finish", home.index, c)] = info
+    return out

@@ -86,6 +86,7 @@ def fp2_from_ints(vals) -> np.ndarray:
     out = np.stack(
         [np.stack([fp.limbs_from_int(c0), fp.limbs_from_int(c1)]) for c0, c1 in vals]
     )
+    # lint: allow(pow2-dispatch) — host converter for constants and tests, off the serving path; eager PyTorch compiles nothing per shape, so an unpadded batch costs no compile
     return prep._dispatch(fp.to_mont, torch.from_numpy(out)).numpy()
 
 

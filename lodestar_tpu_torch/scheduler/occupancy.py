@@ -55,7 +55,7 @@ class OccupancyTracker:
         self._last_ns = time_fn()  # guarded by: _lock
         self.busy_ns_total = 0  # guarded by: _lock — lifetime busy integral (debug/tests)
 
-    def _advance(self, now_ns: int) -> None:  # every caller (begin/end/occupancy) holds _lock
+    def _advance(self, now_ns: int) -> None:  # lint: allow(lock-discipline) — internal fold step; every caller (begin/end/occupancy) holds _lock
         dt = now_ns - self._last_ns
         if dt <= 0:
             return

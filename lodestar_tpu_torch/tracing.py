@@ -263,6 +263,7 @@ class Tracer:
             return self._child(parent, name)
         trace = Trace(f"{next(_trace_ids):08x}", name, slot)
         trace.bulk = bulk
+        # lint: allow(span-discipline) — tracer-internal construction: the returned _RootCtx is the context manager callers `with`
         span = Span(trace, name, trace._new_span_id(), None)
         trace.root = span
         return _RootCtx(self, span)
@@ -280,6 +281,7 @@ class Tracer:
 
     def _child(self, parent: Span, name: str) -> Span:
         trace = parent.trace
+        # lint: allow(span-discipline) — tracer-internal construction: span()/root() hand this out for the caller to `with`
         return Span(trace, name, trace._new_span_id(), parent.span_id)
 
     def record(
@@ -296,6 +298,7 @@ class Tracer:
         if parent is None or isinstance(parent, _NoopSpan):
             return None
         trace = parent.trace
+        # lint: allow(span-discipline) — record() is the documented pre-timed escape hatch: start/end are explicit, _complete_span closes it
         span = Span(trace, name, trace._new_span_id(), parent.span_id, start_ns)
         span.end_ns = end_ns
         if attrs:

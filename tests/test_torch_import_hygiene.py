@@ -70,8 +70,9 @@ def test_every_module_imports_without_jax():
     # crypto.bls.pairing; and the HTR slice: ops.sha256, params, types, ssz and its
     # six modules, state_transition and its htr; and the KZG slice: ops.msm, crypto.kzg;
     # and the offload host: offload.tenancy, offload.server, chain.bls.fallback; and the
-    # offload client: offload.client, offload.audit, testing, testing.clock, testing.faults
-    assert "imported" in proc.stdout and int(proc.stdout.split()[-1]) >= 55
+    # offload client: offload.client, offload.audit, testing, testing.clock, testing.faults;
+    # and the sharded road's testing.mesh
+    assert "imported" in proc.stdout and int(proc.stdout.split()[-1]) >= 56
 
 
 def _imported_top_levels(path):
@@ -97,8 +98,9 @@ def test_no_module_imports_jax_or_the_jax_package():
     offload = {"offload/__init__.py", "offload/tenancy.py", "offload/server.py",
                "offload/client.py", "offload/audit.py", "testing/__init__.py",
                "testing/clock.py", "testing/faults.py"}
-    assert serving | htr | kzg | offload <= {str(f.relative_to(PORT)) for f in files
-                                             if PORT in f.parents}
+    sharded = {"testing/mesh.py"}
+    assert serving | htr | kzg | offload | sharded <= {str(f.relative_to(PORT)) for f in files
+                                                       if PORT in f.parents}
     bad = [
         f"{f.relative_to(REPO)}:{line} imports {name}"
         for f in files

@@ -3,8 +3,9 @@ modules, held against the JAX package's originals.
 
 Every pool scenario of `tests/chain/test_bls_pool.py`,
 `tests/chain/test_mesh_pool.py` (less its cases on the virtual JAX device
-mesh, the CPU-oracle drop and the sharded bulk road the port does not
-have: its bulk cases run on a mesh without a collective) and
+mesh, the CPU-oracle drop and the sharded bulk road, which
+`tests/test_torch_mesh_sharded.py` holds: its bulk cases here run on a
+mesh without a collective) and
 `tests/chain/test_pipeline.py` (less the Prometheus gauges and the CLI
 wiring the port does not copy) runs once through
 `lodestar_tpu.chain.bls` and once through `lodestar_tpu_torch.chain.bls`,
@@ -160,12 +161,9 @@ class Rig:
 
 def _placed(P, pool, cls, n_sets):
     """Index of the lane `pool` places a package of `n_sets` sets of class
-    `cls` on. The JAX pool's placement also names a mode (its sharded
-    road, which needs a collective the port does not have yet, is never
-    taken on a mesh without one); the port's returns the lane."""
+    `cls` on. Both pools' placement also names a mode; the sharded road
+    is never taken on a mesh without a collective."""
     free = pool._free_lanes()
-    if P is TORCH:
-        return pool._pick_placement(free).index
     mode, lanes = pool._pick_placement(_prio(P, cls), [SimpleNamespace(sets=_sets(P, n_sets))],
                                        free)
     assert mode == "single" and len(lanes) == 1
