@@ -199,16 +199,42 @@ Phases, in order; any failure exits non-zero and prints no result:
             passing and raising KzgError on a wrong slot and an infinity
             proof, the check's wall s split into host s and replay s; no
             capture after (c) and (d). Lines start `kzg:`.
-10. check   a Miller loop + final exponentiation of two pairs on the card
+10. block   a mainnet-preset Capella block imported on the card in the
+            shape of the JAX package's chain.py block import, through the
+            port's public functions: an interop phase0 genesis of
+            BLOCK_VALIDATORS validators (keys derived on worker processes),
+            altair, bellatrix and capella at epoch 1, and a block at
+            BLOCK_SLOT with its randao reveal, 2 x 32 attestations (every
+            committee of slots 1-32, every member attesting), an empty sync
+            aggregate and its state root from a host-only run (every hash
+            hashlib's). The import, counts and replays set to 0 just before
+            and read just after: `process_slots` to the block's slot (its
+            state roots through the HTR level graphs), the block's 66
+            signature sets, then the sets through `BlsDeviceVerifierPool` on
+            cuda:0 (API priority, not batchable: one class-128 replay, every
+            kernel launched by it, none eagerly) while an executor thread
+            runs `process_block(..., verify_signatures=False)` and roots the
+            post-state on the card. Verdict True, the root equal to the
+            block's, the sets equal to the host run's field for field; a
+            block with two attestations' signatures swapped verifies False;
+            a block with one byte of its state root changed is reported as
+            a root mismatch; one more import of the block under the
+            profiler gives the card's busy ms and idle share. Prints the
+            set-up s, process_slots s (host prepare + flush, HTR replays by
+            pair class), set-building s and its pubkey-aggregation share,
+            the verify's wall s, replay class and Fp launches per replay,
+            process_block s and state-root s, the import's wall s. No graph
+            may be captured in the phase. Lines start `block:`.
+11. check   a Miller loop + final exponentiation of two pairs on the card
             equals the CPU path (the plain versions) limb for limb, and
             equals e(P, Q) from the host pairing check on canonical values.
-11. report  one JSON line of kernels, the `nvidia-smi` line, and the last
+12. report  one JSON line of kernels, the `nvidia-smi` line, and the last
             line {"ok": true, "device": {...}}.
 
 With `--compare-parent DIR` (a checkout of an earlier commit, for example
 unpacked with `git archive` into a directory that .gitignore lists),
 phase 2 also builds DIR's kernel source, beside this one's, and a step
-between phases 10 and 11 checks each of its kernels against the plain
+between phases 11 and 12 checks each of its kernels against the plain
 version and times it beside this source's, in turns (parent, this, this,
 parent), at the row counts of N_TIMED and of one merged verify, each
 with its ms per verify.
@@ -220,6 +246,7 @@ printed on its own line.
 
 import argparse
 import concurrent.futures
+import contextlib
 import json
 import os
 import subprocess
@@ -2319,6 +2346,29 @@ def host_root(chunks):
     return level[0].tobytes()
 
 
+@contextlib.contextmanager
+def host_only_htr():
+    """Every hash on the host with hashlib, through the incremental state-root
+    tracker (mode "on" on the CPU, every level under the device floors);
+    fails if anything launched on a device meanwhile."""
+    from lodestar_tpu_torch.ssz import device_htr as dh
+    from lodestar_tpu_torch.ssz import hash as ssz_hash
+
+    prev_mode = dh.configure_device_htr(mode="on")
+    prev_dev, prev_flush = dh._htr_device, dh.DEVICE_MIN_FLUSH_PAIRS
+    prev_min = ssz_hash.DEVICE_MIN_PAIRS
+    dh.configure_device_htr(device="cpu")
+    ssz_hash.DEVICE_MIN_PAIRS = dh.DEVICE_MIN_FLUSH_PAIRS = 1 << 62
+    launches = dh.launch_count()
+    try:
+        yield
+    finally:
+        ssz_hash.DEVICE_MIN_PAIRS, dh.DEVICE_MIN_FLUSH_PAIRS = prev_min, prev_flush
+        dh.configure_device_htr(mode=prev_mode, device=prev_dev)
+    if dh.launch_count() != launches:
+        fail("the host-only state roots launched on a device")
+
+
 def htr_replays(dev):
     """{pair class: replays} of the level graphs on `dev`."""
     from lodestar_tpu_torch.ssz import device_htr as dh
@@ -2459,14 +2509,11 @@ def htr_state(dev, smi):
     rounds, HTR_ROUNDS slot-shaped rounds and one profiled epoch round,
     each root through `state_hash_tree_root` equal to a second tracker's on
     the same state that hashes on the host only (hashlib, no launch)."""
-    import contextlib
-
     import numpy as np
     import torch
 
     from lodestar_tpu_torch import params
     from lodestar_tpu_torch.ssz import device_htr as dh
-    from lodestar_tpu_torch.ssz import hash as ssz_hash
     from lodestar_tpu_torch.state_transition import StateRootTracker, state_hash_tree_root
     from lodestar_tpu_torch.types import ssz_types
 
@@ -2511,22 +2558,6 @@ def htr_state(dev, smi):
         state.block_roots[k] = bytes(rng.integers(0, 256, size=32, dtype=np.uint8))
         state.validators[int(rng.integers(0, n))].effective_balance = int(rng.integers(0, 2**40))
 
-    @contextlib.contextmanager
-    def host_only():
-        """The reference: mode off and every level under the device floor, so
-        every hash is hashlib's; no launch and no replay may happen."""
-        prev_mode = dh.configure_device_htr(mode="off")
-        prev_min = ssz_hash.DEVICE_MIN_PAIRS
-        ssz_hash.DEVICE_MIN_PAIRS = 1 << 62
-        launches, replays = dh.launch_count(), htr_replays(dev)
-        try:
-            yield
-        finally:
-            ssz_hash.DEVICE_MIN_PAIRS = prev_min
-            dh.configure_device_htr(mode=prev_mode)
-        if dh.launch_count() != launches or htr_replays(dev) != replays:
-            fail("htr: the host-only reference tracker launched on the device")
-
     flushes = []  # every collector flush's stats, in order
     real_flush = dh.DirtyCollector.flush
 
@@ -2559,7 +2590,7 @@ def htr_state(dev, smi):
                "prepare_launches": launched - stats["launches"],
                "replays_by_class": replays_since(replays, dev),
                "captures": dh.HTR_GRAPHS.captures - captures, **extra}
-        with host_only():
+        with host_only_htr():
             t0 = time.perf_counter()
             want, _ = ref.root(state)
             rec["reference_s"] = time.perf_counter() - t0
@@ -2960,6 +2991,441 @@ def blob_of_poly(coeffs):
     return bytes(out)
 
 
+# --- phase 10 ----------------------------------------------------------------
+# Block import at a mainnet-preset Capella block, in the shape of the JAX
+# package's `chain/chain.py:418-485` (the port's `chain.py` is not written
+# yet, so the phase composes the package's public functions itself): dial
+# the pre-state to the block's slot, collect the block's signature sets,
+# then verify them through the verifier pool on the card while an executor
+# thread runs the signature-free block transition and roots the post-state.
+# The widths are mainnet's (TARGET_COMMITTEE_SIZE 128, SLOTS_PER_EPOCH 32,
+# SYNC_COMMITTEE_SIZE 512); only the validator count is cut, because interop
+# keys are derived and committee pubkeys decoded on the host (~4.8 ms and
+# ~3.3 ms each). At 8,192 validators a slot has 2 committees of 128.
+BLOCK_VALIDATORS = 8192
+BLOCK_SLOT = 33  # epoch 1's second slot: the upgrades of epoch 1 have run
+
+
+def _pubkeys_of(scalars):
+    """The pubkeys of secret-key scalars (a worker of `pubkeys_on_workers`;
+    it imports the host oracle alone, not torch)."""
+    from lodestar_tpu_torch.crypto.bls.api import SecretKey
+
+    return [SecretKey(k).to_pubkey() for k in scalars]
+
+
+def pubkeys_on_workers(sks, workers):
+    """The pubkeys of `sks`, derived on `workers` spawned processes (each one
+    scalar multiplication on the host oracle)."""
+    import multiprocessing
+
+    step = -(-len(sks) // workers)
+    chunks = [[sk.scalar for sk in sks[lo:lo + step]] for lo in range(0, len(sks), step)]
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(len(chunks), mp_context=ctx) as pool:
+        return [pk for chunk in pool.map(_pubkeys_of, chunks) for pk in chunk]
+
+
+def block_chain_config():
+    """Mainnet's chain config with altair, bellatrix and capella all at
+    epoch 1 (deneb not scheduled): the block at BLOCK_SLOT is a pre-merge
+    Capella block."""
+    from lodestar_tpu_torch.config import mainnet_chain_config
+
+    return mainnet_chain_config().replace(ALTAIR_FORK_EPOCH=1, BELLATRIX_FORK_EPOCH=1,
+                                          CAPELLA_FORK_EPOCH=1)
+
+
+def build_block(genesis, sks, p, cfg, slot, attest_from=1):
+    """A signed Capella block at `slot` on top of `genesis` (not mutated),
+    made with every hash on the host: signed by its proposer, a randao
+    reveal, one attestation of every committee of slots attest_from..slot-1 (every
+    member attesting; its signature is one signature by the sum of the
+    committee's secret keys mod r, equal in bytes to the aggregate of the
+    members' signatures), an empty sync aggregate (no participant, the G2
+    infinity signature), and its state root from a host-only run of the
+    block. Slots before `attest_from` get no attestation. Returns (signed
+    block, the dialed host state, its EpochContext)."""
+    from lodestar_tpu_torch import params, ssz
+    from lodestar_tpu_torch.crypto.bls import api as bls
+    from lodestar_tpu_torch.crypto.bls.fields import R
+    from lodestar_tpu_torch.state_transition import (
+        EpochContext,
+        process_block,
+        process_slots,
+        state_hash_tree_root,
+    )
+    from lodestar_tpu_torch.state_transition.util import (
+        compute_signing_root,
+        get_block_root,
+        get_block_root_at_slot,
+        get_current_epoch,
+        get_domain,
+    )
+    from lodestar_tpu_torch.types import ssz_types
+
+    t = ssz_types(p)
+    with host_only_htr():
+        work = genesis.copy()
+        ctx = process_slots(work, slot, p, cfg)
+        epoch = get_current_epoch(work)
+        proposer = ctx.get_beacon_proposer(slot)
+        block = t.capella.BeaconBlock.default()
+        block.slot = slot
+        block.proposer_index = proposer
+        block.parent_root = t.BeaconBlockHeader.hash_tree_root(work.latest_block_header)
+        block.body.randao_reveal = bls.sign(sks[proposer], compute_signing_root(
+            ssz.uint64, epoch, get_domain(work, params.DOMAIN_RANDAO)))
+        block.body.eth1_data = work.eth1_data
+        atts = []
+        for s in range(attest_from, slot):
+            target = s // p.SLOTS_PER_EPOCH
+            for ci in range(ctx.get_committee_count_per_slot(target)):
+                committee = ctx.get_beacon_committee(s, ci)
+                att = t.Attestation.default()
+                att.aggregation_bits = [True] * len(committee)
+                att.data.slot = s
+                att.data.index = ci
+                att.data.beacon_block_root = get_block_root_at_slot(work, s, p)
+                att.data.source = (work.current_justified_checkpoint if target == epoch
+                                   else work.previous_justified_checkpoint)
+                cp = t.Checkpoint.default()
+                cp.epoch = target
+                cp.root = get_block_root(work, target, p)
+                att.data.target = cp
+                root = compute_signing_root(t.AttestationData, att.data, get_domain(
+                    work, params.DOMAIN_BEACON_ATTESTER, target))
+                summed = bls.SecretKey(sum(sks[int(i)].scalar for i in committee) % R)
+                att.signature = bls.sign(summed, root)
+                atts.append(att)
+        block.body.attestations = atts
+        block.body.sync_aggregate.sync_committee_bits = [False] * p.SYNC_COMMITTEE_SIZE
+        block.body.sync_aggregate.sync_committee_signature = bls.G2_INFINITY
+        post = work.copy()
+        process_block(post, block, EpochContext(post, p), verify_signatures=False, cfg=cfg)
+        block.state_root = state_hash_tree_root(post)
+        signed = sign_capella_block(block, sks[proposer], work, p)
+    return signed, work, ctx
+
+
+def sign_capella_block(block, sk, state, p):
+    """The Capella block signed by `sk` under the proposer domain of
+    `state`'s epoch."""
+    from lodestar_tpu_torch import params
+    from lodestar_tpu_torch.crypto.bls import api as bls
+    from lodestar_tpu_torch.state_transition.util import compute_signing_root, get_domain
+    from lodestar_tpu_torch.types import ssz_types
+
+    t = ssz_types(p)
+    signed = t.capella.SignedBeaconBlock.default()
+    signed.message = block
+    signed.signature = bls.sign(sk, compute_signing_root(
+        t.capella.BeaconBlock, block, get_domain(state, params.DOMAIN_BEACON_PROPOSER)))
+    return signed
+
+
+@contextlib.contextmanager
+def timed_calls(obj, name, totals):
+    """Add the wall s of every call of obj.name to totals[name]."""
+    real = getattr(obj, name)
+
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return real(*args, **kwargs)
+        finally:
+            totals[name] = totals.get(name, 0.0) + time.perf_counter() - t0
+
+    setattr(obj, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(obj, name, real)
+
+
+async def verify_and_transition(pool, executor, work, ctx, signed, sets, cfg):
+    """The parallel half of the import: the sets through the pool (API
+    priority, not batchable: the class of a block that is not timely) while
+    an executor thread runs the signature-free block transition on `work`
+    and roots it. Returns the verdict, the root, the error the import
+    reports (None, or "state root mismatch") and the legs' wall s."""
+    import asyncio
+
+    from lodestar_tpu_torch.chain.bls import VerifySignatureOpts
+    from lodestar_tpu_torch.scheduler import PriorityClass
+    from lodestar_tpu_torch.state_transition import process_block, state_hash_tree_root
+
+    block = signed.message
+    out = {}
+
+    def stf():
+        t0 = time.perf_counter()
+        process_block(work, block, ctx, verify_signatures=False, cfg=cfg)
+        t1 = time.perf_counter()
+        root = state_hash_tree_root(work)
+        out["process_block_s"], out["state_root_s"] = t1 - t0, time.perf_counter() - t1
+        return root
+
+    async def sigs():
+        t0 = time.perf_counter()
+        ok = await pool.verify_signature_sets(
+            sets, VerifySignatureOpts(batchable=False, priority=PriorityClass.API))
+        out["verify_s"] = time.perf_counter() - t0
+        return ok
+
+    stf_task = asyncio.get_running_loop().run_in_executor(executor, stf)
+    verdict, root = await asyncio.gather(sigs(), stf_task)
+    out.update(verdict=verdict, root=root,
+               error=None if root == bytes(block.state_root) else "state root mismatch")
+    return out
+
+
+async def import_block(pool, executor, pre, signed, p, cfg, sets=None):
+    """Block import in the shape of the JAX package's chain.py: copy the
+    pre-state and dial it to the block's slot, collect the block's signature
+    sets (unless given), then `verify_and_transition`. Returns its figures,
+    the sets and the post-state."""
+    from lodestar_tpu_torch.ssz import device_htr as dh
+    from lodestar_tpu_torch.state_transition import process_slots
+    from lodestar_tpu_torch.state_transition import signature_sets as ss
+
+    flushes = []
+    real_flush = dh.DirtyCollector.flush
+
+    def logged_flush(self):
+        stats = real_flush(self)
+        flushes.append(stats)
+        return stats
+
+    t_start = time.perf_counter()
+    work = pre.copy()
+    dh.DirtyCollector.flush = logged_flush
+    try:
+        ctx = process_slots(work, signed.message.slot, p, cfg)
+    finally:
+        dh.DirtyCollector.flush = real_flush
+    t_slots = time.perf_counter()
+    totals = {}
+    if sets is None:
+        with timed_calls(ss, "aggregate_pubkeys", totals):
+            sets = ss.get_block_signature_sets(work, signed, ctx)
+    t_sets = time.perf_counter()
+    out = await verify_and_transition(pool, executor, work, ctx, signed, sets, cfg)
+    out.update(
+        wall_s=time.perf_counter() - t_start, process_slots_s=t_slots - t_start,
+        slots_flush_s=sum(f["seconds"] for f in flushes),
+        slots_launches=sum(f["launches"] for f in flushes), sets_s=t_sets - t_slots,
+        aggregate_pubkeys_s=totals.get("aggregate_pubkeys", 0.0), n_sets=len(sets),
+        parallel_s=time.perf_counter() - t_sets)
+    out["slots_prepare_s"] = out["process_slots_s"] - out["slots_flush_s"]
+    return out, sets, work
+
+
+def set_fields(sets):
+    """Each signature set as its (pubkey, message, signature) bytes."""
+    return [(bytes(s.pubkey), bytes(s.message), bytes(s.signature)) for s in sets]
+
+
+def on_pool(device, fn):
+    """asyncio.run(fn(pool, executor)) with a fresh verifier pool on `device`
+    (one lane) and one executor thread for the block transition; both are
+    closed after."""
+    import asyncio
+
+    from lodestar_tpu_torch.chain.bls import BlsDeviceVerifierPool
+
+    async def main():
+        pool = BlsDeviceVerifierPool(device=device)
+        executor = concurrent.futures.ThreadPoolExecutor(1)
+        try:
+            return await fn(pool, executor)
+        finally:
+            await pool.close()
+            executor.shutdown(wait=True)
+
+    return asyncio.run(main())
+
+
+def block_import(dev, smi, p=None, n=BLOCK_VALIDATORS, slot=BLOCK_SLOT, attest_from=1):
+    """Phase 10: a mainnet-preset Capella block imported on the card. The
+    set-up (keys, genesis, the block and its host-only sets) comes first;
+    then, with the Fp launch counts and graph replays set to 0 just before
+    and read just after, the import: verdict True through one class-128
+    replay, the card's post-state root equal to the block's, the sets equal
+    to the host run's field for field. Then a block with two attestations'
+    signatures swapped (False), a block with one byte of its state root
+    changed (reported as a root mismatch), and the valid block once more
+    under the profiler for the card's busy time. No graph may be captured.
+    Lines start `block:`. The preset (mainnet unless given), validator
+    count, slot and first attested slot are the chip run's by default."""
+    from lodestar_tpu_torch import graphs, params
+    from lodestar_tpu_torch.crypto.bls import api as bls
+    from lodestar_tpu_torch.models import batch_verify as bv
+    from lodestar_tpu_torch.ops import fp_cuda
+    from lodestar_tpu_torch.ssz import device_htr as dh
+    from lodestar_tpu_torch.state_transition import signature_sets as ss
+    from lodestar_tpu_torch.state_transition.genesis import (
+        create_interop_genesis_state,
+        interop_pubkeys,
+        interop_secret_keys,
+    )
+
+    p, cfg = p or params.MAINNET, block_chain_config()
+    workers = min(8, os.cpu_count() or 1)
+    out = {"validators": n, "slot": slot}
+    t0 = time.perf_counter()
+    sks = interop_secret_keys(n)
+    pubkeys = pubkeys_on_workers(sks, workers)
+    out["keygen_s"] = time.perf_counter() - t0
+    if pubkeys[:2] != interop_pubkeys(2):
+        fail("block: the workers' interop pubkeys differ from the package's")
+    t0 = time.perf_counter()
+    with host_only_htr():
+        genesis = create_interop_genesis_state(n, p=p, pubkeys=pubkeys,
+                                               genesis_fork_version=cfg.GENESIS_FORK_VERSION)
+    out["genesis_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    signed, host_work, host_ctx = build_block(genesis, sks, p, cfg, slot, attest_from)
+    out["build_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with host_only_htr():
+        host_sets = ss.get_block_signature_sets(host_work, signed, host_ctx)
+    out["host_sets_s"] = time.perf_counter() - t0
+    n_atts = len(signed.message.body.attestations)
+    say(f"block: set-up on the host: {n} interop keys in {out['keygen_s']:.1f} s (pubkeys on "
+        f"{workers} processes), phase0 genesis in {out['genesis_s']:.1f} s, the slot-{slot} "
+        f"Capella block ({n_atts} attestations, empty sync aggregate, state root host-only) in "
+        f"{out['build_s']:.1f} s, its {len(host_sets)} signature sets host-only in "
+        f"{out['host_sets_s']:.1f} s")
+    if len(host_sets) != 2 + n_atts:
+        fail(f"block: {len(host_sets)} sets for a block of {n_atts} attestations")
+
+    # the swapped block: two attestations' signatures swapped, signed by its
+    # proposer; its sets are the valid block's but for the proposer's (the
+    # block's root changed) and the two swapped signatures, as
+    # get_block_signature_sets gives them (without decoding the pubkeys again)
+    swapped = signed.message.copy()
+    a, b = swapped.body.attestations[0], swapped.body.attestations[1]
+    a.signature, b.signature = bytes(b.signature), bytes(a.signature)
+    swapped = sign_capella_block(swapped, sks[int(swapped.proposer_index)], host_work, p)
+    # the changed-root block: one byte of its state root changed, signed
+    changed = signed.message.copy()
+    changed.state_root = bytes([bytes(changed.state_root)[0] ^ 1]) + bytes(changed.state_root)[1:]
+    changed = sign_capella_block(changed, sks[int(changed.proposer_index)], host_work, p)
+
+    cache = bv._SINGLE_LAUNCH_GRAPHS
+    captures = (cache.captures, dh.HTR_GRAPHS.captures, dh.ROOT_GRAPHS.captures)
+
+    def replays():
+        return {size: g.replays for (idx, size), g in cache.graphs.items() if idx == dev.index}
+
+    async def counted(pool, executor):
+        before, htr_before = replays(), htr_replays(dev)
+        fp_cuda.reset_launches()
+        graphs.reset_replayed()  # the block import's run starts here
+        res, sets, post = await import_block(pool, executor, genesis, signed, p, cfg)
+        replayed = dict(graphs.REPLAYED)  # the block import's run ends here
+        after = replays()
+        res["replays_by_class"] = {k: after[k] - before.get(k, 0) for k in sorted(after)
+                                   if after[k] != before.get(k, 0)}
+        res["htr_replays_by_class"] = replays_since(htr_before, dev)
+        res["fp_replayed"], res["fp_eager"] = replayed, dict(fp_cuda.LAUNCHES)
+        return res, sets, post
+
+    res, sets, post = on_pool(dev, counted)
+    out["import"] = {k: v for k, v in res.items() if k != "root"}
+    if res["verdict"] is not True:
+        fail(f"block: the block's {len(sets)} signature sets verified {res['verdict']}")
+    if res["error"] is not None:
+        fail(f"block: the card's post-state root differs from the block's ({res['error']})")
+    if set_fields(sets) != set_fields(host_sets):
+        fail("block: the card run's signature sets differ from the host run's")
+    (cls,) = res["replays_by_class"] or (None,)
+    if res["replays_by_class"] != {cls: 1} or cls != bv.pad_pow2(len(sets)):
+        fail(f"block: the verify replayed {res['replays_by_class']}, not one class "
+             f"{bv.pad_pow2(len(sets))} replay")
+    missing = [k for k in fp_cuda.KERNELS if res["fp_replayed"][k] <= 0]
+    if missing:
+        fail(f"block: kernels never launched by the import's replay: {missing}")
+    if any(res["fp_eager"].values()):
+        fail(f"block: eager kernel launches in the import: {res['fp_eager']}")
+    if res["slots_launches"] <= 0:
+        fail("block: process_slots' state roots never launched on the card")
+    launches = dict(cache.graphs[(dev.index, cls)].launches) if cls else {}
+    out["replay_class"], out["fp_launches_per_replay"] = cls, launches
+    say(f"block: import of the slot-{slot} block on {dev}: verdict True, post-state root "
+        f"== the block's, {len(sets)} sets == the host run's field for field; wall "
+        f"{res['wall_s']:.2f} s on {smi}")
+    say(f"block: process_slots 0->{slot}: {res['process_slots_s']:.2f} s = host prepare "
+        f"{res['slots_prepare_s']:.2f} s + flush {res['slots_flush_s']:.2f} s; "
+        f"{res['slots_launches']} HTR launches, replays by pair class "
+        f"{res['htr_replays_by_class']} (process_slots and the post-state root) on {smi}")
+    say(f"block: set-building {res['sets_s']:.2f} s, of it pubkey aggregation "
+        f"{res['aggregate_pubkeys_s']:.2f} s "
+        f"({100 * res['aggregate_pubkeys_s'] / res['sets_s']:.1f}%, "
+        f"{n_atts} x {len(signed.message.body.attestations[0].aggregation_bits)} pubkeys)")
+    say(f"block: verify {res['verify_s']:.3f} s wall through the pool (one class-{cls} replay, "
+        f"Fp launches per replay {sum(launches.values())} {launches}) beside process_block "
+        f"{res['process_block_s']:.3f} s + state root {res['state_root_s']:.3f} s on the executor "
+        f"thread; the parallel half {res['parallel_s']:.3f} s on {smi}")
+
+    async def variants(pool, executor):
+        """The swapped block's sets through the pool; the changed-root block's
+        verify and transition on a copy of the dialed host state (its root a
+        fresh tracker's, on the card)."""
+        from lodestar_tpu_torch.chain.bls import VerifySignatureOpts
+        from lodestar_tpu_torch.scheduler import PriorityClass
+
+        fields = set_fields(sets)
+        sw = list(sets)
+        sw[0] = ss.block_proposer_signature_set(host_work, swapped, host_ctx)
+        sw[2] = bls.SignatureSet(fields[2][0], fields[2][1], fields[3][2])
+        sw[3] = bls.SignatureSet(fields[3][0], fields[3][1], fields[2][2])
+        t0 = time.perf_counter()
+        res_s = {"verdict": await pool.verify_signature_sets(
+            sw, VerifySignatureOpts(batchable=False, priority=PriorityClass.API))}
+        res_s["verify_s"] = time.perf_counter() - t0
+        ch = [ss.block_proposer_signature_set(host_work, changed, host_ctx)] + list(sets[1:])
+        res_c = await verify_and_transition(pool, executor, host_work.copy(), host_ctx, changed,
+                                            ch, cfg)
+        return res_s, res_c
+
+    res_s, res_c = on_pool(dev, variants)
+    out["swapped"] = res_s
+    out["changed_root"] = {k: v for k, v in res_c.items() if k != "root"}
+    if res_s["verdict"] is not False:
+        fail("block: the block with two attestations' signatures swapped verified")
+    if res_c["verdict"] is not True or res_c["error"] != "state root mismatch":
+        fail(f"block: the changed-root block gave verdict {res_c['verdict']}, error "
+             f"{res_c['error']!r}")
+    say(f"block: two attestations' signatures swapped: verdict False ({res_s['verify_s']:.3f} s); "
+        f"one byte of the state root changed: verdict True, reported as a state root mismatch")
+
+    def again(pool, executor):
+        return import_block(pool, executor, genesis, signed, p, cfg, sets=sets)
+
+    (res_p, _, _), prof_wall_ms, events = profiled(lambda: on_pool(dev, again))
+    busy = busy_ms(events)
+    wall_ms = 1e3 * res["wall_s"]
+    out["busy_ms"], out["prof_wall_ms"] = busy, prof_wall_ms
+    out["device_events"] = len(device_events(events))
+    out["idle"] = 1 - busy / wall_ms if busy else None
+    if res_p["verdict"] is not True or res_p["error"] is not None:
+        fail("block: the profiled import did not verify and root as the first")
+    if busy == 0:
+        say("block: profiled import: device busy time not measured (no device events)")
+    else:
+        say(f"block: profiled import (sets given): device busy {busy:.1f} ms over "
+            f"{out['device_events']} device events; idle {100 * out['idle']:.1f}% of the "
+            f"unprofiled import's {wall_ms:.1f} ms ({100 * (1 - busy / prof_wall_ms):.1f}% of the "
+            f"profiled {prof_wall_ms:.1f} ms, set-building left out) on {smi}")
+    now = (cache.captures, dh.HTR_GRAPHS.captures, dh.ROOT_GRAPHS.captures)
+    if now != captures:
+        fail(f"block: graphs were captured in the phase (BLS, HTR level, HTR root: "
+             f"{captures} -> {now})")
+    return out
+
+
 # --- comparison with an earlier commit's kernels (--compare-parent) -----------
 
 
@@ -3004,7 +3470,7 @@ def compare_kernels(parent, main_run, dev, smi):
     return result
 
 
-# --- phase 10 ----------------------------------------------------------------
+# --- phase 11 ----------------------------------------------------------------
 
 
 def check_against_cpu(dev):
@@ -3109,12 +3575,14 @@ def main():
     hashed = phase("htr", htr, dev, smi)
     # 9. KZG at a mainnet block
     kzged = phase("kzg", kzg, dev, smi)
-    # 10. check against the CPU path
+    # 10. a mainnet-preset Capella block imported on the card
+    blocked = phase("block", block_import, dev, smi)
+    # 11. check against the CPU path
     phase("check", check_against_cpu, dev)
     if parent is not None:
         phase("compare", compare_kernels, parent, main_run, dev, smi)
 
-    # 11. report
+    # 12. report
     from lodestar_tpu_torch.models import batch_verify as bv
 
     runs = {"verify": main_run["per_verify_rows"], "prep": main_run["per_prep_rows"]}
@@ -3149,6 +3617,8 @@ def main():
             "ms_per_kzg_check": kzged["ms_per_check"][name],
             "bound_ms_per_kzg_check": sum(c * bound(name, n)[0]
                                           for n, c in kzged["check_rows"][name].items()),
+            "block_import_replayed": blocked["import"]["fp_replayed"][name],
+            "launches_per_block_import": blocked["fp_launches_per_replay"][name],
         }
         for label, per_rows in runs.items():
             by_rows = per_rows[name]
@@ -3191,6 +3661,7 @@ def main():
     say("sharded: " + json.dumps({k: v for k, v in shard_run.items() if k != "replayed"}))
     say("htr: " + json.dumps(hashed))
     say("kzg: " + json.dumps({k: v for k, v in kzged.items() if not k.endswith("_rows")}))
+    say("block: " + json.dumps(blocked))
     say(f"result: {main_run['sigs_per_s']:.1f} sigs/s verify-only, "
         f"{main_run['bytes_to_verdict_sigs_per_s']:.1f} sigs/s bytes to verdict ({merged}-set "
         f"merged batch, split schedule, device prep {main_run['prep_s']:.3f} s); single launch "

@@ -5,6 +5,34 @@ the parts of the API it needs) so that it imports nothing of the JAX
 package.
 """
 
-from .api import SecretKey, SignatureSet, sign, sk_to_pk
+from .api import (
+    G2_INFINITY,
+    PointDecodeError,
+    SecretKey,
+    SignatureSet,
+    aggregate_pubkeys,
+    aggregate_signatures,
+    aggregate_verify,
+    eth_fast_aggregate_verify,
+    fast_aggregate_verify,
+    sign,
+    sk_to_pk,
+    verify,
+    verify_signature_sets,
+)
 
-__all__ = ["SecretKey", "SignatureSet", "sign", "sk_to_pk"]
+__all__ = [
+    "G2_INFINITY",
+    "PointDecodeError",
+    "SecretKey",
+    "SignatureSet",
+    "aggregate_pubkeys",
+    "aggregate_signatures",
+    "aggregate_verify",
+    "eth_fast_aggregate_verify",
+    "fast_aggregate_verify",
+    "sign",
+    "sk_to_pk",
+    "verify",
+    "verify_signature_sets",
+]

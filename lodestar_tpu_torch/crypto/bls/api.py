@@ -1,11 +1,14 @@
-"""The parts of the BLS signature API the port needs (eth2 flavour:
-minimal-pubkey-size): secret keys, signing and the signature-set work
-item. Pubkeys live in G1 (48B compressed), signatures in G2 (96B
-compressed), messages hash to G2.
+"""The BLS signature API (eth2 flavour: minimal-pubkey-size): secret keys,
+signing, the single-signature checks (verify, the aggregates,
+fast-aggregate and aggregate verify) and the signature-set work item.
+Pubkeys live in G1 (48B compressed), signatures in G2 (96B compressed),
+messages hash to G2.
 
 The batch verifier on the card is ``lodestar_tpu_torch.models.batch_verify``;
 `verify_signature_sets` here is the pure-Python oracle of the same check
-(the single-thread verifier and the pool's `verify_on_main_thread` road).
+(the single-thread verifier and the pool's `verify_on_main_thread` road);
+the single-signature checks are the oracle the state transition calls
+when it verifies inline.
 """
 
 from __future__ import annotations
@@ -15,13 +18,27 @@ from dataclasses import dataclass
 
 from . import curve as C
 from . import fields as F
-from .curve import G1_GEN, g1_mul, g1_neg
+from .curve import G1_GEN, g1_add, g1_mul, g1_neg
 from .fields import R
 from .hash_to_curve import hash_to_g2
-from .pairing import final_exponentiation, miller_loop
+from .pairing import final_exponentiation, miller_loop, pairings_are_one
 from .serdes import PointDecodeError, g1_from_bytes, g1_to_bytes, g2_from_bytes, g2_to_bytes
 
-__all__ = ["SecretKey", "SignatureSet", "sk_to_pk", "sign", "verify_signature_sets"]
+__all__ = [
+    "SecretKey",
+    "sk_to_pk",
+    "sign",
+    "verify",
+    "aggregate_pubkeys",
+    "aggregate_signatures",
+    "fast_aggregate_verify",
+    "eth_fast_aggregate_verify",
+    "G2_INFINITY",
+    "aggregate_verify",
+    "SignatureSet",
+    "verify_signature_sets",
+    "PointDecodeError",
+]
 
 
 @dataclass(frozen=True)
@@ -75,6 +92,86 @@ def _decode_signature(sig: bytes):
     if pt is not None and not C.g2_in_subgroup(pt):
         raise PointDecodeError("signature not in G2 subgroup")
     return pt
+
+
+def verify(pk: bytes, message: bytes, sig: bytes) -> bool:
+    """Core verify: e(pk, H(m)) == e(g1, sig)."""
+    try:
+        pk_pt = _decode_pubkey(pk)
+        sig_pt = _decode_signature(sig)
+    except PointDecodeError:
+        return False
+    if sig_pt is None:
+        return False
+    h = hash_to_g2(message)
+    return pairings_are_one([(g1_neg(G1_GEN), sig_pt), (pk_pt, h)])
+
+
+def aggregate_pubkeys(pks: list[bytes]) -> bytes:
+    if not pks:
+        # An empty aggregate would encode the G1 infinity point, an invalid
+        # pubkey per KeyValidate: refuse, as aggregate_signatures does.
+        raise ValueError("cannot aggregate empty pubkey list")
+    pts = [_decode_pubkey(pk) for pk in pks]
+    acc = None
+    for pt in pts:
+        acc = g1_add(acc, pt)
+    return g1_to_bytes(acc)
+
+
+def aggregate_signatures(sigs: list[bytes]) -> bytes:
+    if not sigs:
+        raise ValueError("cannot aggregate empty signature list")
+    acc = None
+    for s in sigs:
+        acc = C.g2_add(acc, g2_from_bytes(s))
+    return g2_to_bytes(acc)
+
+
+def fast_aggregate_verify(pks: list[bytes], message: bytes, sig: bytes) -> bool:
+    """All pks signed the same message (sync-committee / aggregate path)."""
+    if not pks:
+        return False
+    try:
+        agg = None
+        for pk in pks:
+            agg = g1_add(agg, _decode_pubkey(pk))
+        sig_pt = _decode_signature(sig)
+    except PointDecodeError:
+        return False
+    if sig_pt is None or agg is None:
+        return False
+    h = hash_to_g2(message)
+    return pairings_are_one([(g1_neg(G1_GEN), sig_pt), (agg, h)])
+
+
+G2_INFINITY = b"\xc0" + b"\x00" * 95
+
+
+def eth_fast_aggregate_verify(pks: list[bytes], message: bytes, sig: bytes) -> bool:
+    """Altair eth_fast_aggregate_verify: empty participants + infinity sig is
+    valid (sync-committee path, reference
+    `packages/state-transition/src/signatureSets` sync committee sets).
+    """
+    if not pks and sig == G2_INFINITY:
+        return True
+    return fast_aggregate_verify(pks, message, sig)
+
+
+def aggregate_verify(pks: list[bytes], messages: list[bytes], sig: bytes) -> bool:
+    """Distinct messages, one aggregated signature."""
+    if not pks or len(pks) != len(messages):
+        return False
+    try:
+        pk_pts = [_decode_pubkey(pk) for pk in pks]
+        sig_pt = _decode_signature(sig)
+    except PointDecodeError:
+        return False
+    if sig_pt is None:
+        return False
+    pairs = [(g1_neg(G1_GEN), sig_pt)]
+    pairs += [(pk, hash_to_g2(m)) for pk, m in zip(pk_pts, messages)]
+    return pairings_are_one(pairs)
 
 
 @dataclass(frozen=True)

@@ -16,13 +16,15 @@ on a `RemoteSpanRecorder` relative to its own start and ships them home
 in trailing metadata (key `TRACE_SPANS_KEY`) as the JAX package's JSON
 payload, and the client grafts them under its RPC span
 (`graft_remote_spans`); a client of either package reads the other's
-payload. The metric bridge and the Chrome-trace export of the JAX package
-are not copied.
+payload. `traced` is the decorator form of `span` (the state transition's
+signature-set producer wears it). The metric bridge and the Chrome-trace
+export of the JAX package are not copied.
 """
 
 from __future__ import annotations
 
 import contextvars
+import functools
 import itertools
 import json
 import threading
@@ -37,6 +39,7 @@ __all__ = [
     "get_tracer",
     "reset",
     "span",
+    "traced",
     "root",
     "current",
     "discard",
@@ -421,6 +424,23 @@ class _RootCtx:
 
     def __bool__(self) -> bool:
         return True
+
+
+def traced(name: str):
+    """Decorator form of `span(name)`: times the wrapped call when a
+    trace is active, passes straight through (one flag check) otherwise."""
+
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            if not _TRACER.enabled:
+                return fn(*args, **kwargs)
+            with _TRACER.span(name):
+                return fn(*args, **kwargs)
+
+        return wrapper
+
+    return deco
 
 
 def current() -> Span | None:
