@@ -144,10 +144,11 @@ Phases, in order; any failure exits non-zero and prints no result:
 7d. sharded the sharded verify (`verify_signature_sets_sharded`) over
             every visible GPU, or cuda:0 twice on one GPU. First, outside
             the counted run: the single launch's verdict on a tampered copy
-            of the merged batch, and `warm_sharded` of the pool's class.
-            Then counts and replays reset: (a) the 2048 merged sets True
-            and the tampered copy False, as the single launch says, each in
-            n_shards + 1 dispatches, 3 timed, sigs/s beside phase 6's; (e)
+            of the road's batch, and `warm_sharded` of the pool's class.
+            Then counts and replays reset: (a) the road's batch (the first
+            BATCH of the merged sets, so one shard class serves the whole
+            phase) True and the tampered copy False, as the single launch
+            says, each in n_shards + 1 dispatches, 3 timed, sigs/s; (e)
             the pool over two lanes with the real collective: 16 range-sync
             jobs of 128 True in 16 sharded launches with 0 fallbacks, one
             job with a bad signature False through the per-job retry, no
@@ -215,8 +216,9 @@ Phases, in order; any failure exits non-zero and prints no result:
             kernel launched by it, none eagerly) while an executor thread
             runs `process_block(..., verify_signatures=False)` and roots the
             post-state on the card. Verdict True, the root equal to the
-            block's, the sets equal to the host run's field for field; a
-            block with two attestations' signatures swapped verifies False;
+            block's, the sets equal field for field to sets derived from
+            the secret keys (`reference_sets`, no pubkey decoded); a block
+            with two attestations' signatures swapped verifies False;
             a block with one byte of its state root changed is reported as
             a root mismatch; one more import of the block under the
             profiler gives the card's busy ms and idle share. Prints the
@@ -225,6 +227,32 @@ Phases, in order; any failure exits non-zero and prints no result:
             the verify's wall s, replay class and Fp launches per replay,
             process_block s and state-root s, the import's wall s. No graph
             may be captured in the phase. Lines start `block:`.
+10b. chain  phase 10's genesis, config, keys and slot-33 block through the
+            port's `BeaconChain` (fork choice, a `MemoryDbController`, the
+            verifier pool on cuda:0), counts and replays set to 0 just
+            before each step and read just after: (a) `process_block` of the
+            slot-33 block (API priority): its root returned, the head, the
+            db's bytes the block's, one class-128 replay and no eager
+            launch, its wall s beside phase 10's composed import and split
+            by the trace's spans (set-building, verify, STF + root, and the
+            chain's own sanity, regen, persist and fork choice); (b) at slot
+            34, one SignedAggregateAndProof of each slot-33 committee (every
+            member attesting, the aggregator found by its selection proof)
+            and one single attestation, each validated
+            (`validate_gossip_aggregate_and_proof`,
+            `validate_gossip_attestation`) and its sets verified through the
+            pool as one gossip-attestation job (True), imported into the
+            pools and fork choice; each aggregate again is IGNOREd; (c)
+            `produce_block` at slot 34 packs both aggregates; the block
+            signed with another validator's key is rejected with
+            INVALID_SIGNATURES (head and db unchanged), the valid block
+            imports in one class-8 replay and becomes the head, and fork
+            choice holds the slot-33 attesters' votes for block 33; (d) the
+            slot-34 state dropped from the state cache and regenerated from
+            the db, its root on the card block 34's; (e) the slot-34 import
+            on a fresh chain anchored at the slot-33 state, under the
+            profiler (busy ms, idle share). Every replay at a pool class
+            phase 7 warmed, no graph captured. Lines start `chain:`.
 11. check   a Miller loop + final exponentiation of two pairs on the card
             equals the CPU path (the plain versions) limb for limb, and
             equals e(P, Q) from the host pairing check on canonical values.
@@ -2117,15 +2145,18 @@ def sharded(dev, smi, main, single):
     devs = [torch.device("cuda", i) for i in range(n_gpu)] if n_gpu > 1 else [dev, dev]
     n_shards = len(devs)
     merged_sets = main["merged_sets"]
-    merged = len(merged_sets)
+    # one shard class in the phase: the road's batch is one pool job's BATCH
+    # sets, so (a)-(d) and the pool's jobs in (e) replay the same shard graph
+    road_sets = merged_sets[:BATCH]
+    merged = len(road_sets)
     size = bv._sharded_size(merged, n_shards)
     k = size // n_shards
     say(f"sharded: {n_shards} shards on {[str(d) for d in devs]} "
         f"({'one per GPU' if n_gpu > 1 else 'two on the one GPU, replayed one after the other'}"
         f"); {merged} sets padded to {size}, shard class {k}")
-    tampered = list(merged_sets)
-    tampered[5] = dataclasses.replace(merged_sets[5], signature=merged_sets[6].signature)
-    tampered[6] = dataclasses.replace(merged_sets[6], signature=merged_sets[5].signature)
+    tampered = list(road_sets)
+    tampered[5] = dataclasses.replace(road_sets[5], signature=road_sets[6].signature)
+    tampered[6] = dataclasses.replace(road_sets[6], signature=road_sets[5].signature)
     shard_cache, finish_cache = bv._SHARD_GRAPHS, bv._SHARD_FINISH_GRAPHS
     out = {"devices": [str(d) for d in devs], "gpus": n_gpu, "shard_class": k}
     steps = {}  # wall s of each step of the phase
@@ -2169,25 +2200,26 @@ def sharded(dev, smi, main, single):
     t0 = time.perf_counter()
     fp_cuda.reset_launches()
     graphs.reset_replayed()  # the sharded road's run starts here
-    ok, first_s = verify(merged_sets)
+    ok, first_s = verify(road_sets)
     if ok is not True:
-        fail(f"sharded: the {merged} merged sets verified {ok} (phase 6's single launch: True)")
+        fail(f"sharded: the {merged} sets verified {ok} (phase 6's single launch: True)")
     ok_bad, _ = verify(tampered)
     if ok_bad is not False or single_bad is not False:
         fail(f"sharded: the tampered copy verified {ok_bad} sharded, {single_bad} single launch")
     walls = []
     for i in range(TIMED_RUNS):
-        ok, wall = verify(merged_sets)  # fresh blinding each time
+        ok, wall = verify(road_sets)  # fresh blinding each time
         if ok is not True:
             fail(f"sharded: timed run {i} verified {ok}")
         walls.append(wall)
     mean = sum(walls) / len(walls)
     steps["a"] = time.perf_counter() - t0
     out.update({"first_s": first_s, "walls_s": walls, "sigs_per_s": merged / mean})
-    say(f"sharded: (a) {merged} sets True (first call {first_s:.2f} s with the captures), the "
+    say(f"sharded: (a) {merged} sets True (first call {first_s:.2f} s), the "
         f"tampered copy False, as the single launch says; x{TIMED_RUNS} bytes to verdict "
         f"{', '.join(f'{w:.3f}' for w in walls)} s, {merged / mean:.1f} sigs/s on {n_gpu} "
-        f"GPU(s) beside phase 6's single launch {single['sigs_per_s']:.1f} on {smi}")
+        f"GPU(s) (phase 6's single launch of {BATCH * MERGE_JOBS} sets "
+        f"{single['sigs_per_s']:.1f}) on {smi}")
 
     # (e) the pool's sharded road over two lanes, the real collective
     t0 = time.perf_counter()
@@ -2247,9 +2279,9 @@ def sharded(dev, smi, main, single):
 
     # (b) the graph road's partials against the eager road's, the same bits
     t0 = time.perf_counter()
-    si = bv.prepare_single_launch_inputs(merged_sets, size=size)
+    si = bv.prepare_single_launch_inputs(road_sets, size=size)
     parts = bv._shard_replays(si, devs)
-    inputs = bv.build_device_inputs(merged_sets, size=size, device=devs[0], coeff_bits=si.bits,
+    inputs = bv.build_device_inputs(road_sets, size=size, device=devs[0], coeff_bits=si.bits,
                                     prep="on")
     eager = bv._eager_shard_partials(devs, *inputs)
     h = inputs[1]
@@ -2749,10 +2781,22 @@ def dispatch_seconds(programs, since):
                    if e["seq"] > since and e["program"] in programs)
 
 
+def _oracle_commitment(blob):
+    """The host oracle's KZG commitment of `blob` and its wall s (a worker of
+    phase 9, which runs it beside the card's commitments)."""
+    from lodestar_tpu_torch.crypto import kzg as K
+
+    t0 = time.perf_counter()
+    commitment = K.blob_to_kzg_commitment(blob, oracle=True)
+    return commitment, time.perf_counter() - t0
+
+
 def kzg(dev, smi):
     """Phase 9: KZG at a mainnet block of MAX_BLOBS_PER_BLOCK blobs. Launch counts and
     replays are reset just before the path and read just after; every
     kernel must have been launched. Lines start `kzg:`."""
+    import multiprocessing
+
     import numpy as np
     import torch
 
@@ -2782,22 +2826,25 @@ def kzg(dev, smi):
     say(f"kzg: (b) trusted setup ({len(g1)} G1 points) loaded in {out['setup_load_s']:.2f} s; "
         f"its Montgomery limbs on the card in {out['setup_upload_s']:.3f} s")
 
-    # (c) one commitment: 1 warm-up with the capture, KZG_TIMED timed
+    # (c) one commitment: 1 warm-up with the capture, KZG_TIMED timed; the
+    # host oracle's commitment of the same blob runs meanwhile on a worker
+    # process
     blob = random_blob(rng)
-    t0 = time.perf_counter()
-    first = K.blob_to_kzg_commitment(blob)
-    out["first_commitment_s"] = time.perf_counter() - t0
-    g = K._MSM_GRAPHS.graphs[(dev.index, n)]
-    times = []
-    for i in range(KZG_TIMED):
-        torch.cuda.synchronize()
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(1, mp_context=ctx) as oracle_pool:
+        oracle = oracle_pool.submit(_oracle_commitment, blob)
         t0 = time.perf_counter()
-        if K.blob_to_kzg_commitment(blob) != first:
-            fail(f"kzg: timed commitment {i} differs from the first")
-        times.append(time.perf_counter() - t0)
-    t0 = time.perf_counter()
-    expect = K.blob_to_kzg_commitment(blob, oracle=True)
-    out["oracle_commitment_s"] = time.perf_counter() - t0
+        first = K.blob_to_kzg_commitment(blob)
+        out["first_commitment_s"] = time.perf_counter() - t0
+        g = K._MSM_GRAPHS.graphs[(dev.index, n)]
+        times = []
+        for i in range(KZG_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if K.blob_to_kzg_commitment(blob) != first:
+                fail(f"kzg: timed commitment {i} differs from the first")
+            times.append(time.perf_counter() - t0)
+        expect, out["oracle_commitment_s"] = oracle.result()
     if first != expect:
         fail("kzg: the card's blob commitment differs from the host oracle's")
     c = 0x1234567
@@ -2811,7 +2858,7 @@ def kzg(dev, smi):
                          "fp_launches_per_replay": g.launches,
                          **graph_info(g)}
     say(f"kzg: (c) blob commitment == host oracle's ({out['oracle_commitment_s']:.1f} s on the "
-        f"host, once); constant blob == [c]G1; first call {out['first_commitment_s']:.1f} s "
+        f"host, once, on a worker process); constant blob == [c]G1; first call {out['first_commitment_s']:.1f} s "
         f"(eager warm-up, capture {g.capture_s:.2f} s, instantiate {g.instantiate_s:.2f} s); "
         f"{g.nodes} nodes; pool {g.pool_bytes / 2**20:.1f} MiB")
     say(f"kzg: (c) x{KZG_TIMED} bytes to commitment (host inverse NTT included): "
@@ -3104,23 +3151,52 @@ def build_block(genesis, sks, p, cfg, slot, attest_from=1):
         post = work.copy()
         process_block(post, block, EpochContext(post, p), verify_signatures=False, cfg=cfg)
         block.state_root = state_hash_tree_root(post)
-        signed = sign_capella_block(block, sks[proposer], work, p)
+        signed = sign_block(block, sks[proposer], work, p)
     return signed, work, ctx
 
 
-def sign_capella_block(block, sk, state, p):
-    """The Capella block signed by `sk` under the proposer domain of
-    `state`'s epoch."""
+def reference_sets(state, signed, ctx, sks, p):
+    """The block's signature sets derived from the secret keys, no pubkey
+    decoded: the proposer's and the randao reveal's (a registry pubkey each,
+    as `get_block_signature_sets` gives them), then per attestation the
+    public key of the sum of its attesters' secret keys mod r (equal in
+    bytes to the aggregate of their pubkeys), the signing root of its data
+    and its signature."""
     from lodestar_tpu_torch import params
     from lodestar_tpu_torch.crypto.bls import api as bls
+    from lodestar_tpu_torch.crypto.bls.fields import R
+    from lodestar_tpu_torch.state_transition import signature_sets as ss
     from lodestar_tpu_torch.state_transition.util import compute_signing_root, get_domain
     from lodestar_tpu_torch.types import ssz_types
 
     t = ssz_types(p)
-    signed = t.capella.SignedBeaconBlock.default()
+    body = signed.message.body
+    sets = [ss.block_proposer_signature_set(state, signed, ctx),
+            ss.randao_signature_set(state, body, ctx)]
+    for att in body.attestations:
+        attesting = ctx.get_attesting_indices(att.data, att.aggregation_bits)
+        summed = bls.SecretKey(sum(sks[int(i)].scalar for i in attesting) % R)
+        sets.append(bls.SignatureSet(summed.to_pubkey(), compute_signing_root(
+            t.AttestationData, att.data,
+            get_domain(state, params.DOMAIN_BEACON_ATTESTER, int(att.data.target.epoch))),
+            bytes(att.signature)))
+    return sets
+
+
+def sign_block(block, sk, state, p):
+    """The block (of `state`'s fork) signed by `sk` under the proposer domain
+    of `state`'s epoch."""
+    from lodestar_tpu_torch import params
+    from lodestar_tpu_torch.crypto.bls import api as bls
+    from lodestar_tpu_torch.state_transition.block import fork_of
+    from lodestar_tpu_torch.state_transition.util import compute_signing_root, get_domain
+    from lodestar_tpu_torch.types import ssz_types
+
+    ns = getattr(ssz_types(p), fork_of(state))
+    signed = ns.SignedBeaconBlock.default()
     signed.message = block
     signed.signature = bls.sign(sk, compute_signing_root(
-        t.capella.BeaconBlock, block, get_domain(state, params.DOMAIN_BEACON_PROPOSER)))
+        ns.BeaconBlock, block, get_domain(state, params.DOMAIN_BEACON_PROPOSER)))
     return signed
 
 
@@ -3248,11 +3324,11 @@ def on_pool(device, fn):
 
 def block_import(dev, smi, p=None, n=BLOCK_VALIDATORS, slot=BLOCK_SLOT, attest_from=1):
     """Phase 10: a mainnet-preset Capella block imported on the card. The
-    set-up (keys, genesis, the block and its host-only sets) comes first;
-    then, with the Fp launch counts and graph replays set to 0 just before
+    set-up (keys, genesis, the block and its sets derived from the secret
+    keys) comes first; then, with the Fp launch counts and graph replays set to 0 just before
     and read just after, the import: verdict True through one class-128
     replay, the card's post-state root equal to the block's, the sets equal
-    to the host run's field for field. Then a block with two attestations'
+    to those field for field. Then a block with two attestations'
     signatures swapped (False), a block with one byte of its state root
     changed (reported as a root mismatch), and the valid block once more
     under the profiler for the card's busy time. No graph may be captured.
@@ -3288,14 +3364,13 @@ def block_import(dev, smi, p=None, n=BLOCK_VALIDATORS, slot=BLOCK_SLOT, attest_f
     signed, host_work, host_ctx = build_block(genesis, sks, p, cfg, slot, attest_from)
     out["build_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    with host_only_htr():
-        host_sets = ss.get_block_signature_sets(host_work, signed, host_ctx)
+    host_sets = reference_sets(host_work, signed, host_ctx, sks, p)
     out["host_sets_s"] = time.perf_counter() - t0
     n_atts = len(signed.message.body.attestations)
     say(f"block: set-up on the host: {n} interop keys in {out['keygen_s']:.1f} s (pubkeys on "
         f"{workers} processes), phase0 genesis in {out['genesis_s']:.1f} s, the slot-{slot} "
         f"Capella block ({n_atts} attestations, empty sync aggregate, state root host-only) in "
-        f"{out['build_s']:.1f} s, its {len(host_sets)} signature sets host-only in "
+        f"{out['build_s']:.1f} s, its {len(host_sets)} signature sets from the secret keys in "
         f"{out['host_sets_s']:.1f} s")
     if len(host_sets) != 2 + n_atts:
         fail(f"block: {len(host_sets)} sets for a block of {n_atts} attestations")
@@ -3307,11 +3382,11 @@ def block_import(dev, smi, p=None, n=BLOCK_VALIDATORS, slot=BLOCK_SLOT, attest_f
     swapped = signed.message.copy()
     a, b = swapped.body.attestations[0], swapped.body.attestations[1]
     a.signature, b.signature = bytes(b.signature), bytes(a.signature)
-    swapped = sign_capella_block(swapped, sks[int(swapped.proposer_index)], host_work, p)
+    swapped = sign_block(swapped, sks[int(swapped.proposer_index)], host_work, p)
     # the changed-root block: one byte of its state root changed, signed
     changed = signed.message.copy()
     changed.state_root = bytes([bytes(changed.state_root)[0] ^ 1]) + bytes(changed.state_root)[1:]
-    changed = sign_capella_block(changed, sks[int(changed.proposer_index)], host_work, p)
+    changed = sign_block(changed, sks[int(changed.proposer_index)], host_work, p)
 
     cache = bv._SINGLE_LAUNCH_GRAPHS
     captures = (cache.captures, dh.HTR_GRAPHS.captures, dh.ROOT_GRAPHS.captures)
@@ -3339,7 +3414,7 @@ def block_import(dev, smi, p=None, n=BLOCK_VALIDATORS, slot=BLOCK_SLOT, attest_f
     if res["error"] is not None:
         fail(f"block: the card's post-state root differs from the block's ({res['error']})")
     if set_fields(sets) != set_fields(host_sets):
-        fail("block: the card run's signature sets differ from the host run's")
+        fail("block: the card run's signature sets differ from the secret keys' sets")
     (cls,) = res["replays_by_class"] or (None,)
     if res["replays_by_class"] != {cls: 1} or cls != bv.pad_pow2(len(sets)):
         fail(f"block: the verify replayed {res['replays_by_class']}, not one class "
@@ -3354,7 +3429,7 @@ def block_import(dev, smi, p=None, n=BLOCK_VALIDATORS, slot=BLOCK_SLOT, attest_f
     launches = dict(cache.graphs[(dev.index, cls)].launches) if cls else {}
     out["replay_class"], out["fp_launches_per_replay"] = cls, launches
     say(f"block: import of the slot-{slot} block on {dev}: verdict True, post-state root "
-        f"== the block's, {len(sets)} sets == the host run's field for field; wall "
+        f"== the block's, {len(sets)} sets == the secret keys' field for field; wall "
         f"{res['wall_s']:.2f} s on {smi}")
     say(f"block: process_slots 0->{slot}: {res['process_slots_s']:.2f} s = host prepare "
         f"{res['slots_prepare_s']:.2f} s + flush {res['slots_flush_s']:.2f} s; "
@@ -3423,6 +3498,421 @@ def block_import(dev, smi, p=None, n=BLOCK_VALIDATORS, slot=BLOCK_SLOT, attest_f
     if now != captures:
         fail(f"block: graphs were captured in the phase (BLS, HTR level, HTR root: "
              f"{captures} -> {now})")
+    # phase 10b's set-up, which the JSON summary leaves out
+    out["setup"] = {"p": p, "cfg": cfg, "sks": sks, "genesis": genesis, "signed": signed}
+    return out
+
+
+# --- phase 10b ---------------------------------------------------------------
+# The same block through the port's beacon chain, as the JAX package's node
+# imports it: `BeaconChain.process_block` (sanity, regen, the sets through the
+# pool beside the transition and root on an executor thread, the db, fork
+# choice), gossip aggregates validated and verified as the JAX network
+# processor does, and a block produced from the pools and imported.
+
+
+def signed_aggregate(chain, sks, slot, index):
+    """A SignedAggregateAndProof of committee `index` at `slot` on the chain's
+    head: every member attesting (data from `make_attestation_data`), the
+    aggregate signed with the sum of the members' keys mod r (equal in bytes
+    to the aggregate of their signatures), by the first member whose
+    selection proof `is_aggregator` accepts."""
+    from lodestar_tpu_torch import params, ssz
+    from lodestar_tpu_torch.chain.produce_block import make_attestation_data
+    from lodestar_tpu_torch.chain.validation import is_aggregator
+    from lodestar_tpu_torch.crypto.bls import api as bls
+    from lodestar_tpu_torch.crypto.bls.fields import R
+    from lodestar_tpu_torch.state_transition import EpochContext
+    from lodestar_tpu_torch.state_transition.util import compute_signing_root, get_domain
+
+    t, p = chain.types, chain.p
+    state = chain.get_head_state()
+    committee = [int(i) for i in EpochContext(state, p).get_beacon_committee(slot, index)]
+    data = make_attestation_data(chain, slot, index)
+    epoch = int(data.target.epoch)
+    att = t.Attestation.default()
+    att.data = data
+    att.aggregation_bits = [True] * len(committee)
+    summed = bls.SecretKey(sum(sks[i].scalar for i in committee) % R)
+    att.signature = bls.sign(summed, compute_signing_root(
+        t.AttestationData, data, get_domain(state, params.DOMAIN_BEACON_ATTESTER, epoch)))
+    sel_root = compute_signing_root(ssz.uint64, slot,
+                                    get_domain(state, params.DOMAIN_SELECTION_PROOF, epoch))
+    for vi in committee:
+        proof = bls.sign(sks[vi], sel_root)
+        if is_aggregator(len(committee), proof):
+            break
+    else:
+        fail(f"chain: no aggregator in committee {index} of slot {slot}")
+    agg = t.AggregateAndProof.default()
+    agg.aggregator_index = vi
+    agg.aggregate = att
+    agg.selection_proof = proof
+    signed = t.SignedAggregateAndProof.default()
+    signed.message = agg
+    signed.signature = bls.sign(sks[vi], compute_signing_root(
+        t.AggregateAndProof, agg, get_domain(state, params.DOMAIN_AGGREGATE_AND_PROOF, epoch)))
+    return signed
+
+
+def single_attestation(chain, sks, slot, index, member=0):
+    """An unaggregated attestation of committee `index` at `slot` on the
+    chain's head, by its `member`-th member."""
+    from lodestar_tpu_torch import params
+    from lodestar_tpu_torch.chain.produce_block import make_attestation_data
+    from lodestar_tpu_torch.crypto.bls import api as bls
+    from lodestar_tpu_torch.state_transition import EpochContext
+    from lodestar_tpu_torch.state_transition.util import compute_signing_root, get_domain
+
+    t, p = chain.types, chain.p
+    state = chain.get_head_state()
+    committee = EpochContext(state, p).get_beacon_committee(slot, index)
+    att = t.Attestation.default()
+    att.data = make_attestation_data(chain, slot, index)
+    att.aggregation_bits = [i == member for i in range(len(committee))]
+    att.signature = bls.sign(sks[int(committee[member])], compute_signing_root(
+        t.AttestationData, att.data,
+        get_domain(state, params.DOMAIN_BEACON_ATTESTER, int(att.data.target.epoch))))
+    return att
+
+
+def span_ms(trace, *names):
+    """Total ms of the trace's spans with these names."""
+    return sum(s.duration_ms for s in trace.spans if s.name in names)
+
+
+def import_split(trace, slots_s):
+    """A `process_block` trace split by its spans (s): set-building, verify,
+    STF + root (the executor thread's), and the chain's own share: sanity
+    (the root's start to the regen span's), regen less `process_slots`,
+    persist and fork choice (its attestation votes and head)."""
+    root = trace.root
+    regen = [s for s in trace.spans if s.name == "pre_state_regen"]
+    sanity_ms = (regen[0].start_ns - root.start_ns) / 1e6 if regen else root.duration_ms
+    out = {
+        "wall_s": root.duration_ms / 1e3,
+        "sets_s": span_ms(trace, "signature_sets") / 1e3,
+        "verify_s": span_ms(trace, "bls_verify") / 1e3,
+        "stf_s": span_ms(trace, "state_transition") / 1e3,
+        "root_s": span_ms(trace, "hash_tree_root") / 1e3,
+        "process_slots_s": slots_s,
+        "sanity_s": sanity_ms / 1e3,
+        "regen_s": span_ms(trace, "pre_state_regen") / 1e3 - slots_s,
+        "persist_s": span_ms(trace, "persist_block") / 1e3,
+        "fork_choice_s": span_ms(trace, "fork_choice") / 1e3,
+    }
+    out["chain_own_s"] = sum(out[k] for k in ("sanity_s", "regen_s", "persist_s",
+                                              "fork_choice_s"))
+    return out
+
+
+def chain_phase(dev, smi, blocked):
+    """Phase 10b: phase 10's set-up through the port's `BeaconChain`. Each
+    step sets the Fp launch counts and graph replays to 0 just before and
+    reads them just after; the kernels' `chain_replayed` sums the steps.
+    Lines start `chain:`."""
+    from lodestar_tpu_torch import graphs, params, ssz, tracing
+    from lodestar_tpu_torch.chain import chain as chain_mod
+    from lodestar_tpu_torch.chain.bls import VerifySignatureOpts
+    from lodestar_tpu_torch.chain.bls.pool import POOL_SIZE_CLASSES
+    from lodestar_tpu_torch.chain.chain import BeaconChain, BlockError, BlockErrorCode
+    from lodestar_tpu_torch.chain.produce_block import produce_block
+    from lodestar_tpu_torch.chain.validation import (
+        GossipAction,
+        GossipValidationError,
+        validate_gossip_aggregate_and_proof,
+        validate_gossip_attestation,
+    )
+    from lodestar_tpu_torch.crypto.bls import api as bls
+    from lodestar_tpu_torch.db import MemoryDbController
+    from lodestar_tpu_torch.models import batch_verify as bv
+    from lodestar_tpu_torch.ops import fp_cuda
+    from lodestar_tpu_torch.scheduler import PriorityClass
+    from lodestar_tpu_torch.ssz import device_htr as dh
+    from lodestar_tpu_torch.state_transition import EpochContext, state_hash_tree_root
+    from lodestar_tpu_torch.state_transition.util import compute_signing_root, get_domain
+    from lodestar_tpu_torch.types import ssz_types
+
+    setup = blocked["setup"]
+    p, cfg, sks, genesis, signed = (setup[k] for k in ("p", "cfg", "sks", "genesis", "signed"))
+    t = ssz_types(p)
+    slot = int(signed.message.slot)
+    nxt = slot + 1
+    root_a = t.capella.BeaconBlock.hash_tree_root(signed.message)
+    cache = bv._SINGLE_LAUNCH_GRAPHS
+    captures = (cache.captures, dh.HTR_GRAPHS.captures, dh.ROOT_GRAPHS.captures)
+    out = {"steps": {}}
+    replayed_total = dict.fromkeys(fp_cuda.KERNELS, 0)
+    classes_seen = set()
+
+    def replays():
+        return {size: g.replays for (idx, size), g in cache.graphs.items() if idx == dev.index}
+
+    class Step:
+        """One step's window: counts and replays set to 0 on entry, read on
+        exit into out["steps"][name]."""
+
+        def __init__(self, name):
+            self.name = name
+
+        def __enter__(self):
+            self.before, self.htr_before = replays(), htr_replays(dev)
+            fp_cuda.reset_launches()
+            graphs.reset_replayed()
+            self.t0 = time.perf_counter()
+            return self
+
+        def __exit__(self, *exc):
+            wall = time.perf_counter() - self.t0
+            fp_replayed, fp_eager = dict(graphs.REPLAYED), dict(fp_cuda.LAUNCHES)
+            after = replays()
+            by_class = {k: after[k] - self.before.get(k, 0) for k in sorted(after)
+                        if after[k] != self.before.get(k, 0)}
+            self.rec = out["steps"][self.name] = {
+                "wall_s": wall, "replays_by_class": by_class,
+                "htr_replays_by_class": replays_since(self.htr_before, dev),
+                "fp_replayed": fp_replayed, "fp_eager": fp_eager}
+            for k in fp_cuda.KERNELS:
+                replayed_total[k] += fp_replayed[k]
+            classes_seen.update(by_class)
+            return False
+
+    def one_replay(step, cls, what):
+        rec = out["steps"][step]
+        if rec["replays_by_class"] != {cls: 1}:
+            fail(f"chain: {what} replayed {rec['replays_by_class']}, not one class-{cls} replay")
+        missing = [k for k in fp_cuda.KERNELS if rec["fp_replayed"][k] <= 0]
+        if missing:
+            fail(f"chain: kernels never launched by {what}: {missing}")
+        if any(rec["fp_eager"].values()):
+            fail(f"chain: eager kernel launches in {what}: {rec['fp_eager']}")
+
+    def last_trace(name):
+        trace = tracing.get_tracer().ring[-1]
+        if trace.name != name:
+            fail(f"chain: the last trace is {trace.name!r}, not {name!r}")
+        return trace
+
+    slots_s = {}
+    tracing.reset()
+    tracing.configure(enabled=True, slow_slot_ms=1e9)
+    t0 = time.perf_counter()
+    chain = BeaconChain(anchor_state=genesis, bls_verifier=None, db=MemoryDbController(), p=p,
+                        cfg=cfg, current_slot=slot)
+    out["chain_setup_s"] = time.perf_counter() - t0
+
+    async def steps(pool, executor):
+        chain.bls = pool
+        # (a) the slot-33 block
+        with timed_calls(chain_mod, "process_slots", slots_s), Step("a"):
+            got = await chain.process_block(signed)
+        split_a = import_split(last_trace("process_block"), slots_s.get("process_slots", 0.0))
+        out["steps"]["a"]["split"] = split_a
+        if got != root_a or chain.head_root != root_a:
+            fail("chain: (a) the imported block's root is not the returned root and the head")
+        stored = chain.get_block_by_root(root_a)
+        if stored.type.serialize(stored) != signed.type.serialize(signed):
+            fail("chain: (a) the db's block differs from the imported block's bytes")
+        one_replay("a", bv.pad_pow2(blocked["import"]["n_sets"]), "(a)'s import")
+
+        # (b) gossip for slot 33 on the new head
+        chain.on_slot(nxt)
+        committees = EpochContext(chain.get_head_state(), p).get_committee_count_per_slot(
+            slot // p.SLOTS_PER_EPOCH)
+        t_b = time.perf_counter()
+        objects = [("aggregate", ci, signed_aggregate(chain, sks, slot, ci))
+                   for ci in range(committees)]
+        objects.append(("attestation", 0, single_attestation(chain, sks, slot, 0)))
+        out["gossip_build_s"] = time.perf_counter() - t_b
+        gossip = []
+        with Step("b"):
+            for kind, ci, obj in objects:
+                t1 = time.perf_counter()
+                if kind == "aggregate":
+                    res = validate_gossip_aggregate_and_proof(chain, obj)
+                else:
+                    res = validate_gossip_attestation(chain, obj)
+                t2 = time.perf_counter()
+                before = replays()
+                ok = await pool.verify_signature_sets(
+                    res.signature_sets, VerifySignatureOpts(priority=PriorityClass.GOSSIP_ATTESTATION))
+                t3 = time.perf_counter()
+                after = replays()
+                if ok is not True:
+                    fail(f"chain: (b) the {kind} of committee {ci} verified {ok}")
+                # as the JAX network processor imports a verified attestation
+                res.register_seen()
+                att = obj.message.aggregate if kind == "aggregate" else obj
+                att_root = t.AttestationData.hash_tree_root(att.data)
+                pool_of = (chain.aggregated_attestation_pool if kind == "aggregate"
+                           else chain.attestation_pool)
+                pool_of.add(att, att_root)
+                chain.fork_choice.on_attestation(
+                    res.attesting_indices, "0x" + bytes(att.data.beacon_block_root).hex(),
+                    att.data.target.epoch, att.data.slot)
+                gossip.append({
+                    "kind": kind, "committee": ci, "sets": len(res.signature_sets),
+                    "attesters": len(res.attesting_indices), "validate_s": t2 - t1,
+                    "pool_s": t3 - t2,
+                    "replay_classes": {k: after[k] - before.get(k, 0) for k in after
+                                       if after[k] != before.get(k, 0)}})
+        out["gossip"] = gossip
+        for g in gossip:
+            if g["replay_classes"] != {bv.pad_pow2(g["sets"]): 1}:
+                fail(f"chain: (b) the {g['kind']} of committee {g['committee']} replayed "
+                     f"{g['replay_classes']}, not one class-{bv.pad_pow2(g['sets'])} replay")
+        if any(out["steps"]["b"]["fp_eager"].values()):
+            fail(f"chain: (b) eager kernel launches: {out['steps']['b']['fp_eager']}")
+        for kind, ci, obj in objects:
+            if kind != "aggregate":
+                continue
+            try:
+                validate_gossip_aggregate_and_proof(chain, obj)
+            except GossipValidationError as e:
+                if e.action is not GossipAction.IGNORE or "already seen aggregator" not in str(e):
+                    fail(f"chain: (b) the repeated aggregate raised {e}")
+            else:
+                fail(f"chain: (b) the aggregate of committee {ci} validated twice")
+
+        # (c) produce slot 34, import it signed with the wrong key, then the right one
+        state_a = chain.get_state_by_block_root(root_a)
+        proposer = EpochContext(state_a, p).get_beacon_proposer(nxt)
+        reveal = bls.sign(sks[proposer], compute_signing_root(
+            ssz.uint64, nxt // p.SLOTS_PER_EPOCH, get_domain(state_a, params.DOMAIN_RANDAO)))
+        with Step("c_produce"):
+            block = produce_block(chain, slot=nxt, randao_reveal=reveal)
+        prod = last_trace("block_production")
+        out["produce"] = {k: span_ms(prod, name) / 1e3 for k, name in (
+            ("state_advance_s", "produce_state_advance"),
+            ("packing_s", "produce_op_pool_packing"), ("stf_s", "produce_stf"),
+            ("root_s", "produce_hash_tree_root"))}
+        out["produce"]["wall_s"] = out["steps"]["c_produce"]["wall_s"]
+        packed = sorted(a.type.serialize(a) for a in block.body.attestations)
+        want = sorted(o.message.aggregate.type.serialize(o.message.aggregate)
+                      for kind, _, o in objects if kind == "aggregate")
+        if packed != want:
+            fail(f"chain: (c) the produced block packs {len(packed)} attestations, not the "
+                 f"{len(want)} aggregates")
+        out["packed"] = len(packed)
+        good = sign_block(block, sks[proposer], state_a, p)
+        wrong = sign_block(block, sks[(proposer + 1) % len(sks)], state_a, p)
+        root_c = t.capella.BeaconBlock.hash_tree_root(block)
+        with Step("c_wrong_key"):
+            try:
+                await chain.process_block(wrong)
+            except BlockError as e:
+                if e.code != BlockErrorCode.INVALID_SIGNATURES:
+                    fail(f"chain: (c) the wrong-key block was rejected with {e.code}, not "
+                         "INVALID_SIGNATURES")
+            else:
+                fail("chain: (c) the block signed with the wrong key imported")
+        if (chain.head_root != root_a or chain.blocks_db.get_binary(root_c) is not None
+                or chain.fork_choice.proto_array.has_block("0x" + root_c.hex())):
+            fail("chain: (c) the rejected block moved the head or reached the db or fork choice")
+        slots_s.clear()
+        with timed_calls(chain_mod, "process_slots", slots_s), Step("c_import"):
+            got = await chain.process_block(good)
+        split_c = import_split(last_trace("process_block"), slots_s.get("process_slots", 0.0))
+        out["steps"]["c_import"]["split"] = split_c
+        n_sets = [s.attrs.get("sets") for s in last_trace("process_block").spans
+                  if s.name == "bls_verify"]
+        if got != root_c or chain.head_root != root_c:
+            fail("chain: (c) the produced block did not become the head")
+        if n_sets != [2 + len(want)]:
+            fail(f"chain: (c) the produced block's import verified {n_sets} sets, not "
+                 f"{2 + len(want)}")
+        one_replay("c_import", bv.pad_pow2(2 + len(want)), "(c)'s import")
+        votes = chain.fork_choice.votes
+        ctx_a = EpochContext(state_a, p)
+        attesters = sorted({int(i) for ci in range(committees)
+                            for i in ctx_a.get_beacon_committee(slot, ci)})
+        hex_a = "0x" + root_a.hex()
+        if any(votes.root_of(int(votes.current[i])) != hex_a for i in attesters):
+            fail(f"chain: (c) fork choice does not hold the {len(attesters)} attesters' votes "
+                 "for the slot-33 block")
+        out["votes_for_block_a"] = len(attesters)
+
+        # (d) regen of the slot-34 state from the db
+        chain.state_cache._by_root.pop(root_c, None)
+        with Step("d"):
+            st = chain.get_state_by_block_root(root_c)
+            t_r = time.perf_counter()
+            got_root = state_hash_tree_root(st)
+            out["regen_root_s"] = time.perf_counter() - t_r
+        if got_root != bytes(block.state_root):
+            fail("chain: (d) the regenerated slot-34 state's root differs from the block's")
+        if out["steps"]["d"]["replays_by_class"]:
+            fail(f"chain: (d) regen replayed BLS graphs {out['steps']['d']['replays_by_class']}")
+        return good, state_a
+
+    good, state_a = on_pool(dev, steps)
+
+    # (e) the slot-34 import on a fresh chain anchored at the slot-33 state, profiled
+    fresh = BeaconChain(anchor_state=state_a, bls_verifier=None, db=MemoryDbController(), p=p,
+                        cfg=cfg, current_slot=nxt)
+    if fresh.head_root != root_a:
+        fail("chain: (e) the fresh chain's anchor is not the slot-33 block")
+
+    async def again(pool, executor):
+        fresh.bls = pool
+        return await fresh.process_block(good)
+
+    got_e, prof_wall_ms, events = profiled(lambda: on_pool(dev, again))
+    tracing.reset()
+    if got_e != t.capella.BeaconBlock.hash_tree_root(good.message):
+        fail("chain: (e) the profiled import returned another root")
+    busy = busy_ms(events)
+    wall_ms = 1e3 * out["steps"]["c_import"]["wall_s"]
+    out.update(busy_ms=busy, prof_wall_ms=prof_wall_ms, device_events=len(device_events(events)),
+               idle=(1 - busy / wall_ms) if busy else None)
+
+    unwarmed = sorted(classes_seen - set(POOL_SIZE_CLASSES))
+    if unwarmed:
+        fail(f"chain: replays at classes phase 7 did not warm: {unwarmed}")
+    now = (cache.captures, dh.HTR_GRAPHS.captures, dh.ROOT_GRAPHS.captures)
+    if now != captures:
+        fail(f"chain: graphs were captured in the phase (BLS, HTR level, HTR root: "
+             f"{captures} -> {now})")
+    out["replayed"] = replayed_total
+
+    st, gossip = out["steps"], out["gossip"]
+    split_a, split_c = st["a"]["split"], st["c_import"]["split"]
+    cls_a, cls_c = (next(iter(st[k]["replays_by_class"]), None) for k in ("a", "c_import"))
+    say(f"chain: (a) BeaconChain.process_block of the slot-{slot} block: {split_a['wall_s']:.2f} s "
+        f"(phase 10's composed import {blocked['import']['wall_s']:.2f} s); one class-"
+        f"{cls_a} replay; head == its root, the db's bytes == "
+        f"the block's; chain set-up {out['chain_setup_s']:.2f} s on {smi}")
+    say(f"chain: (a) split: process_slots {split_a['process_slots_s']:.2f} s, set-building "
+        f"{split_a['sets_s']:.2f} s, verify {split_a['verify_s']:.3f} s beside STF "
+        f"{split_a['stf_s']:.3f} s + root {split_a['root_s']:.3f} s; the chain's own "
+        f"{split_a['chain_own_s']:.3f} s = sanity {split_a['sanity_s']:.3f} + regen "
+        f"{split_a['regen_s']:.3f} + persist {split_a['persist_s']:.3f} + fork choice "
+        f"{split_a['fork_choice_s']:.3f} on {smi}")
+    for g in gossip:
+        say(f"chain: (b) {g['kind']} of committee {g['committee']}: {g['attesters']} attesters, "
+            f"{g['sets']} sets, validation {g['validate_s']:.3f} s, pool {g['pool_s']:.3f} s "
+            f"(replays by class {g['replay_classes']}), True on {smi}")
+    say(f"chain: (b) {st['b']['wall_s']:.2f} s for {len(gossip)} objects (built in "
+        f"{out['gossip_build_s']:.2f} s) on {smi}; each aggregate again IGNOREd (already seen "
+        "aggregator)")
+    pr = out["produce"]
+    say(f"chain: (c) produce_block at slot {nxt}: {pr['wall_s']:.2f} s = state advance "
+        f"{pr['state_advance_s']:.2f} + packing {pr['packing_s']:.3f} + STF {pr['stf_s']:.3f} + "
+        f"root {pr['root_s']:.3f} s; {out['packed']} aggregates packed on {smi}")
+    say(f"chain: (c) signed with another key: INVALID_SIGNATURES in "
+        f"{st['c_wrong_key']['wall_s']:.2f} s (replays {st['c_wrong_key']['replays_by_class']}), "
+        f"head and db unchanged; the valid block: {split_c['wall_s']:.2f} s, one class-"
+        f"{cls_c} replay, head == its root, "
+        f"{out['votes_for_block_a']} votes for block {slot} on {smi}")
+    say(f"chain: (d) regen from the db: {st['d']['wall_s']:.2f} s (the root on the card "
+        f"{out['regen_root_s']:.2f} s), == block {nxt}'s state root on {smi}")
+    if busy == 0:
+        say("chain: (e) profiled import: device busy time not measured (no device events)")
+    else:
+        say(f"chain: (e) profiled import on a fresh chain: device busy {busy:.1f} ms over "
+            f"{out['device_events']} device events; idle {100 * out['idle']:.1f}% of (c)'s "
+            f"unprofiled {wall_ms:.1f} ms ({100 * (1 - busy / prof_wall_ms):.1f}% of the "
+            f"profiled {prof_wall_ms:.1f} ms) on {smi}")
     return out
 
 
@@ -3577,6 +4067,8 @@ def main():
     kzged = phase("kzg", kzg, dev, smi)
     # 10. a mainnet-preset Capella block imported on the card
     blocked = phase("block", block_import, dev, smi)
+    # 10b. the same block, gossip and a produced block through the port's BeaconChain
+    chained = phase("chain", chain_phase, dev, smi, blocked)
     # 11. check against the CPU path
     phase("check", check_against_cpu, dev)
     if parent is not None:
@@ -3619,6 +4111,7 @@ def main():
                                           for n, c in kzged["check_rows"][name].items()),
             "block_import_replayed": blocked["import"]["fp_replayed"][name],
             "launches_per_block_import": blocked["fp_launches_per_replay"][name],
+            "chain_replayed": chained["replayed"][name],
         }
         for label, per_rows in runs.items():
             by_rows = per_rows[name]
@@ -3661,7 +4154,8 @@ def main():
     say("sharded: " + json.dumps({k: v for k, v in shard_run.items() if k != "replayed"}))
     say("htr: " + json.dumps(hashed))
     say("kzg: " + json.dumps({k: v for k, v in kzged.items() if not k.endswith("_rows")}))
-    say("block: " + json.dumps(blocked))
+    say("block: " + json.dumps({k: v for k, v in blocked.items() if k != "setup"}))
+    say("chain: " + json.dumps({k: v for k, v in chained.items() if k != "replayed"}))
     say(f"result: {main_run['sigs_per_s']:.1f} sigs/s verify-only, "
         f"{main_run['bytes_to_verdict_sigs_per_s']:.1f} sigs/s bytes to verdict ({merged}-set "
         f"merged batch, split schedule, device prep {main_run['prep_s']:.3f} s); single launch "

@@ -8,7 +8,9 @@ attestation by 2/3 slot, an API submission by the end of the slot,
 multi-slot budgets for sync and backfill), the process-global accountant
 (`configure_slo` / `reset_slo` and the `job_*` lifecycle hooks) and its
 `wait_budget` profile, which splits each job's life into four legs (buffer
-wait, queue wait, staging, device launch) from its own monotonic stamps.
+wait, queue wait, staging, device launch) from its own monotonic stamps;
+and the chain's span and dump helpers (`slack_ms`, `debug_view`,
+`slow_slot_slack`).
 Deadlines are wall-clock, every duration leg monotonic. Unconfigured, each
 hook costs one None check. Stdlib only.
 """
@@ -24,6 +26,7 @@ from .scheduler import PriorityClass
 
 __all__ = [
     "DEADLINE_FRACTIONS",
+    "SLO_STAGES",
     "WAIT_LEGS",
     "SlotDeadlineModel",
     "JobSlo",
@@ -36,6 +39,9 @@ __all__ = [
     "job_launch",
     "job_verdict",
     "wait_budget",
+    "slack_ms",
+    "debug_view",
+    "slow_slot_slack",
 ]
 
 #: per-class deadline as a fraction of (or multiple of) the slot
@@ -52,6 +58,9 @@ DEADLINE_FRACTIONS: dict[PriorityClass, float] = {
     PriorityClass.RANGE_SYNC: 8.0,
     PriorityClass.BACKFILL: 32.0,
 }
+
+#: lifecycle stages a slack sample is labelled with
+SLO_STAGES = ("enqueue", "dispatch", "verdict")
 
 #: the four legs that partition added→verdict (see `wait_budget`)
 WAIT_LEGS = ("buffer", "queue", "stage", "launch")
@@ -244,6 +253,22 @@ class _SloAccountant:
                 }
         return out
 
+    def slow_slot_slack(self) -> dict:
+        """Per-class remaining slack right now — the snapshot a slow-slot
+        dump embeds so 'did we still make the deadline' needs no
+        metrics query."""
+        model = self.model
+        if model is None:
+            return {}
+        slot = model.current_slot
+        now = model.now()
+        return {
+            "slot": slot,
+            "slack_s": {
+                c.label: round(model.slack_s(c, slot, now), 4) for c in PriorityClass
+            },
+        }
+
 
 def _quantiles(ring: deque | None, unit_ms: bool = True) -> dict:
     scale = 1000.0 if unit_ms else 1.0
@@ -363,7 +388,32 @@ def job_verdict(js: JobSlo | None, ok: bool) -> None:
     _ACCT.record_verdict(js, ok, _ACCT.monotonic_ns(), slack)
 
 
+# -- span/dump helpers ---------------------------------------------------------
+
+
+def slack_ms(priority: PriorityClass, slot: int | None = None) -> float | None:
+    """Remaining slack in ms for span attributes; None when inactive."""
+    model = _ACCT.model
+    if model is None:
+        return None
+    return round(model.slack_s(PriorityClass(priority), slot) * 1000.0, 3)
+
+
 def wait_budget() -> dict:
     """The machine-readable per-class wait-budget profile (see
     `_SloAccountant.wait_budget`)."""
     return _ACCT.wait_budget()
+
+
+def debug_view() -> dict:
+    """`GET /eth/v0/debug/slo` payload: the wait budget plus the live
+    slack snapshot."""
+    out = _ACCT.wait_budget()
+    out["now"] = _ACCT.slow_slot_slack()
+    return out
+
+
+def slow_slot_slack() -> dict:
+    """Per-class remaining slack at call time (slow-slot dump payload);
+    empty dict when inactive."""
+    return _ACCT.slow_slot_slack()

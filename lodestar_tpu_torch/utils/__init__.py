@@ -1,4 +1,5 @@
-"""Small helpers the verifier pool and its breakers use.
+"""Small helpers the verifier pool and its breakers use; the bounded job
+queue the chain's regen runs on is in `utils.queue`.
 
 The PyTorch port's copies of ``lodestar_tpu/utils`` `backoff_delay` and of
 ``lodestar_tpu/utils/tracing.py`` `trace_region`, the latter on

@@ -743,9 +743,14 @@ def sc_health_recovers_after_fault_window(P, S, real):
         _wait(lambda: r.inj.calls_to("A", "status") >= 1, what="the first probe")
         _wait(lambda: not _ep(r.client, "A").healthy or r.inj.calls_to("A", "status") > 2,
               what="the fault window observed")
-        _wait(lambda: _ep(r.client, "A").healthy and r.inj.calls_to("A", "status") >= 3,
+        # `healthy` is set inside the probe and `consecutive_failures` reset
+        # after it returns, so the three facts are read together in one
+        # predicate: asserting the counter after `healthy` alone could land
+        # between the two writes
+        _wait(lambda: (_ep(r.client, "A").healthy and r.inj.calls_to("A", "status") >= 3
+                       and _ep(r.client, "A").consecutive_failures == 0
+                       and r.client.can_accept_work()),
               timeout_s=10.0, what="recovery")
-        assert _ep(r.client, "A").consecutive_failures == 0 and r.client.can_accept_work()
         return {"status_faults": r.inj.injected[P.faults.FaultKind.UNAVAILABLE]}
     finally:
         r.close()

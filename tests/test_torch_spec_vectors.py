@@ -5,12 +5,11 @@ state transition: `lodestar_tpu_torch.spec_test` walks the tree and
 (`tests/spec/test_stf_executors.py`), run each case on the port's modules.
 
 Every runner and handler in the tree is claimed, or `run_spec_tests`
-raises (`test_the_tree_is_exhaustive`); the one explicit skip is
-`fork_choice`, whose module is not ported yet. The cases are split
-between this file (bls, ssz_static, shuffling, rewards, epoch_processing)
-and `test_torch_spec_vectors_blocks.py` (operations, sanity, finality) so
-that xdist's `loadfile` runs the halves on two workers; together they run
-every case the skip leaves. The tolerance is the vectors': equal bytes,
+raises (`test_the_tree_is_exhaustive`); no runner is skipped. The cases
+are split between this file (bls, ssz_static, shuffling, rewards,
+epoch_processing, fork_choice) and `test_torch_spec_vectors_blocks.py`
+(operations, sanity, finality) so that xdist's `loadfile` runs the halves
+on two workers; together they run every case of the tree. The tolerance is the vectors': equal bytes,
 roots and verdicts. The port's HTR device is the CPU.
 """
 
@@ -35,7 +34,7 @@ from lodestar_tpu_torch.state_transition import epoch as E
 from lodestar_tpu_torch.types import ssz_types
 
 VECTORS = os.path.join(os.path.dirname(__file__), "spec", "vectors", "tests")
-SKIP = SkipOpts(skipped_runners=("fork_choice",))
+SKIP = SkipOpts()  # no runner is skipped
 BLOCK_RUNNERS = ("operations", "sanity", "finality")  # the other file's half
 
 
@@ -265,6 +264,51 @@ def _ssz_static_handlers():
     return {name: _ssz_static for name in sorted(os.listdir(root))}
 
 
+def _fork_choice_get_head(case):
+    """The port's ForkChoice from the case's anchor and balances, then its
+    steps (tick, block, attestation, head check), as the JAX package's
+    executor (`tests/spec/test_stf_executors.py` `_fork_choice_handler`)."""
+    from lodestar_tpu_torch.fork_choice import ForkChoice
+    from lodestar_tpu_torch.fork_choice.proto_array import HEX_ZERO_HASH, ProtoBlock
+
+    anchor = case.load("anchor")
+    balances = np.asarray([int(b) for b in case.load("balances")], dtype=np.int64)
+
+    def proto(b):
+        return ProtoBlock(
+            slot=int(b["slot"]),
+            block_root=b["root"],
+            parent_root=b["parent"],
+            state_root=HEX_ZERO_HASH,
+            target_root=b["root"],
+            justified_epoch=0,
+            justified_root=anchor["root"],
+            finalized_epoch=0,
+            finalized_root=anchor["root"],
+        )
+
+    fc = ForkChoice.from_anchor(proto(anchor), current_slot=0, justified_balances=balances,
+                                slots_per_epoch=params.active_preset().SLOTS_PER_EPOCH)
+    checks = 0
+    for step in case.load("steps"):
+        if "tick" in step:
+            fc.on_tick(int(step["tick"]))
+        elif "block" in step:
+            fc.on_block(proto(step["block"]))
+        elif "attestation" in step:
+            a = step["attestation"]
+            fc.on_attestation(
+                [int(i) for i in a["indices"]], a["root"], int(a["target_epoch"]), int(a["slot"])
+            )
+        elif "checks" in step:
+            head = fc.update_head()
+            assert head == step["checks"]["head"], (
+                f"{case.test_id}: head {head} != {step['checks']['head']}"
+            )
+            checks += 1
+    assert checks, f"{case.test_id}: no head check"
+
+
 RUNNERS = {
     "bls": BLS,
     "operations": OPERATIONS,
@@ -274,6 +318,7 @@ RUNNERS = {
     "shuffling": {"core": _shuffling},
     "rewards": {"basic": _rewards},
     "ssz_static": _ssz_static_handlers(),
+    "fork_choice": {"get_head": _fork_choice_get_head},
 }
 
 CASES = iterate_spec_tests(VECTORS, SKIP)
@@ -290,25 +335,25 @@ def test_spec_case(case):
 
 
 def test_the_tree_is_exhaustive():
-    """run_spec_tests claims every runner and handler of the tree (the skip
-    is fork_choice alone), the two files' halves cover every case it walks,
-    and an unknown runner or handler is an error, not a skip."""
+    """run_spec_tests claims every runner and handler of the tree (no
+    runner skipped), the two files' halves cover every case it walks, and
+    an unknown runner or handler is an error, not a skip."""
     walked = []
     claimed = {r: {h: walked.append for h in hs} for r, hs in RUNNERS.items()}
     n = run_spec_tests(VECTORS, claimed, SKIP)
-    assert n == len(walked) == len(CASES) == 103
+    assert n == len(walked) == len(CASES) == 106
     assert {c.runner for c in CASES} == set(RUNNERS)
     assert [c.test_id for c in walked] == [c.test_id for c in CASES]
     rest = [c for c in CASES if c.runner in BLOCK_RUNNERS]
     assert len(HERE) + len(rest) == len(CASES) and HERE and rest
-    skipped = [c for c in iterate_spec_tests(VECTORS) if c.runner == "fork_choice"]
-    assert len(iterate_spec_tests(VECTORS)) == len(CASES) + len(skipped) and skipped
+    assert len(iterate_spec_tests(VECTORS)) == len(CASES)
+    assert [c.test_id for c in CASES if c.runner == "fork_choice"]
     with pytest.raises(KeyError, match="unknown spec-test runner"):
         run_spec_tests(VECTORS, {r: hs for r, hs in claimed.items() if r != "rewards"}, SKIP)
     with pytest.raises(KeyError, match="unknown spec-test handler"):
         run_spec_tests(VECTORS, {**claimed, "sanity": {"slots": walked.append}}, SKIP)
     with pytest.raises(KeyError, match="unknown spec-test runner"):
-        run_spec_tests(VECTORS, claimed)  # fork_choice is not claimed
+        run_spec_tests(VECTORS, {r: hs for r, hs in claimed.items() if r != "fork_choice"})
 
 
 def test_spec_case_loads_like_the_jax_runner():
@@ -316,7 +361,7 @@ def test_spec_case_loads_like_the_jax_runner():
     from lodestar_tpu.spec_test import SkipOpts as JSkipOpts
     from lodestar_tpu.spec_test import iterate_spec_tests as j_iterate
 
-    jcases = j_iterate(VECTORS, JSkipOpts(skipped_runners=("fork_choice",)))
+    jcases = j_iterate(VECTORS, JSkipOpts())
     assert [c.test_id for c in jcases] == [c.test_id for c in CASES]
     for jc, c in zip(jcases[::9], CASES[::9]):
         assert c.files() == jc.files()
