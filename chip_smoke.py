@@ -149,8 +149,8 @@ Phases, in order; any failure exits non-zero and prints no result:
             BATCH of the merged sets, so one shard class serves the whole
             phase) True and the tampered copy False, as the single launch
             says, each in n_shards + 1 dispatches, 3 timed, sigs/s; (e)
-            the pool over two lanes with the real collective: 16 range-sync
-            jobs of 128 True in 16 sharded launches with 0 fallbacks, one
+            the pool over two lanes with the real collective: 8 range-sync
+            jobs of 128 True in 8 sharded launches with 0 fallbacks, one
             job with a bad signature False through the per-job retry, no
             capture, no eager launch; replays read. (b) the graph road's
             partials limb-equal to the eager road's on the same bits; (c)
@@ -168,8 +168,8 @@ Phases, in order; any failure exits non-zero and prints no result:
             root equal to hashlib's; pair-hashes/s. (b) the collector on a
             2^18-chunk stack with 4096 dirty chunks a flush, 5 flushes, each
             on the device with at most 18 launches; chunks/s. (c) a mainnet
-            Capella BeaconState with 2^20 validators: a cold root, 3
-            epoch-boundary rounds, 3 slot-shaped rounds and a profiled epoch
+            Capella BeaconState with 2^20 validators: a cold root, 2
+            epoch-boundary rounds, 2 slot-shaped rounds and a profiled epoch
             round through `state_hash_tree_root`, each root equal to a second
             tracker's on the same state hashed with hashlib only (no launch,
             no replay); each round prints host prepare s, flush s, launches,
@@ -231,11 +231,12 @@ Phases, in order; any failure exits non-zero and prints no result:
             port's `BeaconChain` (fork choice, a `MemoryDbController`, the
             verifier pool on cuda:0), counts and replays set to 0 just
             before each step and read just after: (a) `process_block` of the
-            slot-33 block (API priority): its root returned, the head, the
-            db's bytes the block's, one class-128 replay and no eager
-            launch, its wall s beside phase 10's composed import and split
-            by the trace's spans (set-building, verify, STF + root, and the
-            chain's own sanity, regen, persist and fork choice); (b) at slot
+            slot-33 block (API priority) with phase 10's signature sets
+            (its set-building is not repeated): its root returned, the head,
+            the db's bytes the block's, one class-128 replay and no eager
+            launch, its wall s split by the trace's spans (verify, STF +
+            root, and the chain's own sanity, regen, persist and fork
+            choice); (b) at slot
             34, one SignedAggregateAndProof of each slot-33 committee (every
             member attesting, the aggregator found by its selection proof)
             and one single attestation, each validated
@@ -249,10 +250,29 @@ Phases, in order; any failure exits non-zero and prints no result:
             imports in one class-8 replay and becomes the head, and fork
             choice holds the slot-33 attesters' votes for block 33; (d) the
             slot-34 state dropped from the state cache and regenerated from
-            the db, its root on the card block 34's; (e) the slot-34 import
-            on a fresh chain anchored at the slot-33 state, under the
-            profiler (busy ms, idle share). Every replay at a pool class
-            phase 7 warmed, no graph captured. Lines start `chain:`.
+            the db, its root on the card block 34's. Every replay at a pool
+            class phase 7 warmed, no graph captured. Lines start `chain:`.
+10c. sync   phase 10's genesis, config and keys through the port's network
+            side, counts and replays set to 0 just before each step and read
+            just after: (a) 32 Capella blocks at slots 35-66 (no
+            attestations, slots 1-34 empty) built on the host, imported by a
+            serving `BeaconChain` (mock verifier) and served by its
+            `ReqRespBeaconNode` over TCP on 127.0.0.1 (in-memory streams
+            where a loopback socket is refused); (b) `RangeSync(35, 66)`
+            into a fresh chain on `BlsDeviceVerifierPool(mesh_mode="auto")`
+            over blocks-by-range v2: 32 imports, one class-8 replay each,
+            the head the server's; (b') a device error in the pool's lanes
+            pauses the round (no attempt spent, no downscore); (c)
+            `BackfillSync` of the window [34, 66) from the synced head: 31
+            blocks linked down to the genesis block, their proposer
+            signatures as one BACKFILL job (one class-32 replay), persisted;
+            with a byte of one signature changed, rejected with nothing
+            persisted; (d) a produced slot-67 block, the slot-66 aggregates
+            and an attestation pushed by topic into `NetworkProcessor` and
+            drained with `execute_work` (validation s, pool s, replay class
+            and verdict per object; processed 4, errors 0, the head at 67);
+            (e) block 66 imported under the profiler (busy ms, idle share of
+            the median import). No graph captured. Lines start `sync:`.
 11. check   a Miller loop + final exponentiation of two pairs on the card
             equals the CPU path (the plain versions) limb for limb, and
             equals e(P, Q) from the host pairing check on canonical values.
@@ -2102,7 +2122,7 @@ def offload_client(dev, smi, main, served, offloaded):
 # devices are every visible GPU when there are more than one, else cuda:0
 # twice: two shards on one GPU replay one after the other, so on one GPU the
 # phase shows the road is right and what it costs, not a speed-up.
-SHARD_POOL_JOBS = 16  # (e) range-sync jobs of BATCH sets, each sharded over two lanes
+SHARD_POOL_JOBS = 8  # (e) range-sync jobs of BATCH sets, each sharded over two lanes
 
 
 def replay_ms(g, reps=3):
@@ -2350,7 +2370,7 @@ HTR_STACK_DEPTH = 18  # (b) the collector: a 2^18-chunk stack ...
 HTR_DIRTY = 4096  # ... and 4096 dirty chunks per flush
 HTR_FLUSHES = 5
 HTR_VALIDATORS = 1 << 20  # (c) a mainnet Capella BeaconState
-HTR_ROUNDS = 3  # epoch-boundary rounds, and as many slot-shaped rounds
+HTR_ROUNDS = 2  # epoch-boundary rounds, and as many slot-shaped rounds
 # The least int32 operations one pair hash needs (a 64-byte message, two
 # compressions), with a rotation as one funnel shift: a round is Sigma1
 # (3 rotations, 2 xors), Ch (3), T1 (4 adds), Sigma0 (5), Maj (4) and the
@@ -3085,23 +3105,38 @@ def block_chain_config():
 
 def build_block(genesis, sks, p, cfg, slot, attest_from=1):
     """A signed Capella block at `slot` on top of `genesis` (not mutated),
-    made with every hash on the host: signed by its proposer, a randao
-    reveal, one attestation of every committee of slots attest_from..slot-1 (every
-    member attesting; its signature is one signature by the sum of the
-    committee's secret keys mod r, equal in bytes to the aggregate of the
-    members' signatures), an empty sync aggregate (no participant, the G2
-    infinity signature), and its state root from a host-only run of the
-    block. Slots before `attest_from` get no attestation. Returns (signed
-    block, the dialed host state, its EpochContext)."""
-    from lodestar_tpu_torch import params, ssz
-    from lodestar_tpu_torch.crypto.bls import api as bls
-    from lodestar_tpu_torch.crypto.bls.fields import R
+    made with every hash on the host: `unsigned_block`'s body, its state
+    root from a host-only run of the block, signed by its proposer. Returns
+    (signed block, the dialed host state, its EpochContext)."""
     from lodestar_tpu_torch.state_transition import (
         EpochContext,
         process_block,
         process_slots,
         state_hash_tree_root,
     )
+
+    with host_only_htr():
+        work = genesis.copy()
+        ctx = process_slots(work, slot, p, cfg)
+        block = unsigned_block(work, ctx, sks, p, slot, attest_from)
+        post = work.copy()
+        process_block(post, block, EpochContext(post, p), verify_signatures=False, cfg=cfg)
+        block.state_root = state_hash_tree_root(post)
+        signed = sign_block(block, sks[block.proposer_index], work, p)
+    return signed, work, ctx
+
+
+def unsigned_block(work, ctx, sks, p, slot, attest_from):
+    """The Capella block at `slot` on `work` (dialed to `slot`), its state
+    root left zero: its proposer, parent, a randao reveal, the eth1 data, one
+    attestation of every committee of slots attest_from..slot-1 (every
+    member attesting; its signature is one signature by the sum of the
+    committee's secret keys mod r, equal in bytes to the aggregate of the
+    members' signatures) and an empty sync aggregate (no participant, the
+    G2 infinity signature). Slots before `attest_from` get no attestation."""
+    from lodestar_tpu_torch import params, ssz
+    from lodestar_tpu_torch.crypto.bls import api as bls
+    from lodestar_tpu_torch.crypto.bls.fields import R
     from lodestar_tpu_torch.state_transition.util import (
         compute_signing_root,
         get_block_root,
@@ -3112,47 +3147,65 @@ def build_block(genesis, sks, p, cfg, slot, attest_from=1):
     from lodestar_tpu_torch.types import ssz_types
 
     t = ssz_types(p)
+    epoch = get_current_epoch(work)
+    proposer = ctx.get_beacon_proposer(slot)
+    block = t.capella.BeaconBlock.default()
+    block.slot = slot
+    block.proposer_index = proposer
+    block.parent_root = t.BeaconBlockHeader.hash_tree_root(work.latest_block_header)
+    block.body.randao_reveal = bls.sign(sks[proposer], compute_signing_root(
+        ssz.uint64, epoch, get_domain(work, params.DOMAIN_RANDAO)))
+    block.body.eth1_data = work.eth1_data
+    atts = []
+    for s in range(attest_from, slot):
+        target = s // p.SLOTS_PER_EPOCH
+        for ci in range(ctx.get_committee_count_per_slot(target)):
+            committee = ctx.get_beacon_committee(s, ci)
+            att = t.Attestation.default()
+            att.aggregation_bits = [True] * len(committee)
+            att.data.slot = s
+            att.data.index = ci
+            att.data.beacon_block_root = get_block_root_at_slot(work, s, p)
+            att.data.source = (work.current_justified_checkpoint if target == epoch
+                               else work.previous_justified_checkpoint)
+            cp = t.Checkpoint.default()
+            cp.epoch = target
+            cp.root = get_block_root(work, target, p)
+            att.data.target = cp
+            root = compute_signing_root(t.AttestationData, att.data, get_domain(
+                work, params.DOMAIN_BEACON_ATTESTER, target))
+            summed = bls.SecretKey(sum(sks[int(i)].scalar for i in committee) % R)
+            att.signature = bls.sign(summed, root)
+            atts.append(att)
+    block.body.attestations = atts
+    block.body.sync_aggregate.sync_committee_bits = [False] * p.SYNC_COMMITTEE_SIZE
+    block.body.sync_aggregate.sync_committee_signature = bls.G2_INFINITY
+    return block
+
+
+def build_segment(anchor, sks, p, cfg, slots):
+    """Consecutive signed blocks at `slots` on `anchor` (not mutated), each as
+    `build_block` makes it with no attestation, chained on the previous
+    block's post-state: one state dialed, built on and rooted in place, every
+    hash on the host through its warm tracker. Returns the signed blocks."""
+    from lodestar_tpu_torch.state_transition import (
+        EpochContext,
+        process_block,
+        process_slots,
+        state_hash_tree_root,
+    )
+
+    out = []
     with host_only_htr():
-        work = genesis.copy()
-        ctx = process_slots(work, slot, p, cfg)
-        epoch = get_current_epoch(work)
-        proposer = ctx.get_beacon_proposer(slot)
-        block = t.capella.BeaconBlock.default()
-        block.slot = slot
-        block.proposer_index = proposer
-        block.parent_root = t.BeaconBlockHeader.hash_tree_root(work.latest_block_header)
-        block.body.randao_reveal = bls.sign(sks[proposer], compute_signing_root(
-            ssz.uint64, epoch, get_domain(work, params.DOMAIN_RANDAO)))
-        block.body.eth1_data = work.eth1_data
-        atts = []
-        for s in range(attest_from, slot):
-            target = s // p.SLOTS_PER_EPOCH
-            for ci in range(ctx.get_committee_count_per_slot(target)):
-                committee = ctx.get_beacon_committee(s, ci)
-                att = t.Attestation.default()
-                att.aggregation_bits = [True] * len(committee)
-                att.data.slot = s
-                att.data.index = ci
-                att.data.beacon_block_root = get_block_root_at_slot(work, s, p)
-                att.data.source = (work.current_justified_checkpoint if target == epoch
-                                   else work.previous_justified_checkpoint)
-                cp = t.Checkpoint.default()
-                cp.epoch = target
-                cp.root = get_block_root(work, target, p)
-                att.data.target = cp
-                root = compute_signing_root(t.AttestationData, att.data, get_domain(
-                    work, params.DOMAIN_BEACON_ATTESTER, target))
-                summed = bls.SecretKey(sum(sks[int(i)].scalar for i in committee) % R)
-                att.signature = bls.sign(summed, root)
-                atts.append(att)
-        block.body.attestations = atts
-        block.body.sync_aggregate.sync_committee_bits = [False] * p.SYNC_COMMITTEE_SIZE
-        block.body.sync_aggregate.sync_committee_signature = bls.G2_INFINITY
-        post = work.copy()
-        process_block(post, block, EpochContext(post, p), verify_signatures=False, cfg=cfg)
-        block.state_root = state_hash_tree_root(post)
-        signed = sign_block(block, sks[proposer], work, p)
-    return signed, work, ctx
+        state = anchor.copy()
+        for slot in slots:
+            ctx = process_slots(state, slot, p, cfg)
+            block = unsigned_block(state, ctx, sks, p, slot, attest_from=slot)
+            process_block(state, block, EpochContext(state, p), verify_signatures=False, cfg=cfg)
+            block.state_root = state_hash_tree_root(state)
+            # the block leaves the state's slot and fork, so its proposer domain, as they were
+            out.append(sign_block(block, sks[block.proposer_index], state, p))
+    return out
 
 
 def reference_sets(state, signed, ctx, sks, p):
@@ -3217,6 +3270,22 @@ def timed_calls(obj, name, totals):
         yield
     finally:
         setattr(obj, name, real)
+
+
+@contextlib.contextmanager
+def wrapped(obj, name, make):
+    """obj.name replaced by make(obj.name) inside the block (an instance's
+    method through an attribute of the instance, taken away after)."""
+    own = name in vars(obj)
+    real = getattr(obj, name)
+    setattr(obj, name, make(real))
+    try:
+        yield
+    finally:
+        if own:
+            setattr(obj, name, real)
+        else:
+            delattr(obj, name)
 
 
 async def verify_and_transition(pool, executor, work, ctx, signed, sets, cfg):
@@ -3499,8 +3568,56 @@ def block_import(dev, smi, p=None, n=BLOCK_VALIDATORS, slot=BLOCK_SLOT, attest_f
         fail(f"block: graphs were captured in the phase (BLS, HTR level, HTR root: "
              f"{captures} -> {now})")
     # phase 10b's set-up, which the JSON summary leaves out
-    out["setup"] = {"p": p, "cfg": cfg, "sks": sks, "genesis": genesis, "signed": signed}
+    out["setup"] = {"p": p, "cfg": cfg, "sks": sks, "genesis": genesis, "signed": signed,
+                    "sets": sets}
     return out
+
+
+def bls_replays(dev):
+    """{size class: replays} of the single-launch graphs on `dev`."""
+    from lodestar_tpu_torch.models import batch_verify as bv
+
+    return {size: g.replays for (idx, size), g in bv._SINGLE_LAUNCH_GRAPHS.graphs.items()
+            if idx == dev.index}
+
+
+class CountedStep:
+    """One step's window: the Fp launch counts and graph replays set to 0 on
+    entry, read on exit into steps[name] (wall s, BLS replays by class, HTR
+    replays by pair class, Fp launches replayed and eager); the replayed
+    launches are added to `totals` and the classes to `classes`."""
+
+    def __init__(self, dev, steps, totals, classes, name):
+        self.dev, self.steps, self.totals, self.classes, self.name = (
+            dev, steps, totals, classes, name)
+
+    def __enter__(self):
+        from lodestar_tpu_torch import graphs
+        from lodestar_tpu_torch.ops import fp_cuda
+
+        self.before, self.htr_before = bls_replays(self.dev), htr_replays(self.dev)
+        fp_cuda.reset_launches()
+        graphs.reset_replayed()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        from lodestar_tpu_torch import graphs
+        from lodestar_tpu_torch.ops import fp_cuda
+
+        wall = time.perf_counter() - self.t0
+        fp_replayed, fp_eager = dict(graphs.REPLAYED), dict(fp_cuda.LAUNCHES)
+        after = bls_replays(self.dev)
+        by_class = {k: after[k] - self.before.get(k, 0) for k in sorted(after)
+                    if after[k] != self.before.get(k, 0)}
+        self.rec = self.steps[self.name] = {
+            "wall_s": wall, "replays_by_class": by_class,
+            "htr_replays_by_class": replays_since(self.htr_before, self.dev),
+            "fp_replayed": fp_replayed, "fp_eager": fp_eager}
+        for k in fp_cuda.KERNELS:
+            self.totals[k] += fp_replayed[k]
+        self.classes.update(by_class)
+        return False
 
 
 # --- phase 10b ---------------------------------------------------------------
@@ -3611,7 +3728,7 @@ def chain_phase(dev, smi, blocked):
     step sets the Fp launch counts and graph replays to 0 just before and
     reads them just after; the kernels' `chain_replayed` sums the steps.
     Lines start `chain:`."""
-    from lodestar_tpu_torch import graphs, params, ssz, tracing
+    from lodestar_tpu_torch import params, ssz, tracing
     from lodestar_tpu_torch.chain import chain as chain_mod
     from lodestar_tpu_torch.chain.bls import VerifySignatureOpts
     from lodestar_tpu_torch.chain.bls.pool import POOL_SIZE_CLASSES
@@ -3646,36 +3763,10 @@ def chain_phase(dev, smi, blocked):
     classes_seen = set()
 
     def replays():
-        return {size: g.replays for (idx, size), g in cache.graphs.items() if idx == dev.index}
+        return bls_replays(dev)
 
-    class Step:
-        """One step's window: counts and replays set to 0 on entry, read on
-        exit into out["steps"][name]."""
-
-        def __init__(self, name):
-            self.name = name
-
-        def __enter__(self):
-            self.before, self.htr_before = replays(), htr_replays(dev)
-            fp_cuda.reset_launches()
-            graphs.reset_replayed()
-            self.t0 = time.perf_counter()
-            return self
-
-        def __exit__(self, *exc):
-            wall = time.perf_counter() - self.t0
-            fp_replayed, fp_eager = dict(graphs.REPLAYED), dict(fp_cuda.LAUNCHES)
-            after = replays()
-            by_class = {k: after[k] - self.before.get(k, 0) for k in sorted(after)
-                        if after[k] != self.before.get(k, 0)}
-            self.rec = out["steps"][self.name] = {
-                "wall_s": wall, "replays_by_class": by_class,
-                "htr_replays_by_class": replays_since(self.htr_before, dev),
-                "fp_replayed": fp_replayed, "fp_eager": fp_eager}
-            for k in fp_cuda.KERNELS:
-                replayed_total[k] += fp_replayed[k]
-            classes_seen.update(by_class)
-            return False
+    def Step(name):
+        return CountedStep(dev, out["steps"], replayed_total, classes_seen, name)
 
     def one_replay(step, cls, what):
         rec = out["steps"][step]
@@ -3703,8 +3794,17 @@ def chain_phase(dev, smi, blocked):
 
     async def steps(pool, executor):
         chain.bls = pool
-        # (a) the slot-33 block
-        with timed_calls(chain_mod, "process_slots", slots_s), Step("a"):
+        # (a) the slot-33 block. Its sets are phase 10's (built there through
+        # get_block_signature_sets, ~25 s of pubkey aggregation on the host,
+        # and checked against the secret keys' sets), so (a) times the
+        # chain's import around them
+        def known_sets(real):
+            def run(state, block, ctx):
+                return list(setup["sets"]) if block is signed else real(state, block, ctx)
+            return run
+
+        with wrapped(chain_mod, "get_block_signature_sets", known_sets), \
+                timed_calls(chain_mod, "process_slots", slots_s), Step("a"):
             got = await chain.process_block(signed)
         split_a = import_split(last_trace("process_block"), slots_s.get("process_slots", 0.0))
         out["steps"]["a"]["split"] = split_a
@@ -3843,28 +3943,9 @@ def chain_phase(dev, smi, blocked):
             fail("chain: (d) the regenerated slot-34 state's root differs from the block's")
         if out["steps"]["d"]["replays_by_class"]:
             fail(f"chain: (d) regen replayed BLS graphs {out['steps']['d']['replays_by_class']}")
-        return good, state_a
 
-    good, state_a = on_pool(dev, steps)
-
-    # (e) the slot-34 import on a fresh chain anchored at the slot-33 state, profiled
-    fresh = BeaconChain(anchor_state=state_a, bls_verifier=None, db=MemoryDbController(), p=p,
-                        cfg=cfg, current_slot=nxt)
-    if fresh.head_root != root_a:
-        fail("chain: (e) the fresh chain's anchor is not the slot-33 block")
-
-    async def again(pool, executor):
-        fresh.bls = pool
-        return await fresh.process_block(good)
-
-    got_e, prof_wall_ms, events = profiled(lambda: on_pool(dev, again))
+    on_pool(dev, steps)
     tracing.reset()
-    if got_e != t.capella.BeaconBlock.hash_tree_root(good.message):
-        fail("chain: (e) the profiled import returned another root")
-    busy = busy_ms(events)
-    wall_ms = 1e3 * out["steps"]["c_import"]["wall_s"]
-    out.update(busy_ms=busy, prof_wall_ms=prof_wall_ms, device_events=len(device_events(events)),
-               idle=(1 - busy / wall_ms) if busy else None)
 
     unwarmed = sorted(classes_seen - set(POOL_SIZE_CLASSES))
     if unwarmed:
@@ -3878,10 +3959,11 @@ def chain_phase(dev, smi, blocked):
     st, gossip = out["steps"], out["gossip"]
     split_a, split_c = st["a"]["split"], st["c_import"]["split"]
     cls_a, cls_c = (next(iter(st[k]["replays_by_class"]), None) for k in ("a", "c_import"))
-    say(f"chain: (a) BeaconChain.process_block of the slot-{slot} block: {split_a['wall_s']:.2f} s "
-        f"(phase 10's composed import {blocked['import']['wall_s']:.2f} s); one class-"
-        f"{cls_a} replay; head == its root, the db's bytes == "
-        f"the block's; chain set-up {out['chain_setup_s']:.2f} s on {smi}")
+    say(f"chain: (a) BeaconChain.process_block of the slot-{slot} block with phase 10's sets: "
+        f"{split_a['wall_s']:.2f} s (phase 10's composed import {blocked['import']['wall_s']:.2f} "
+        f"s, {blocked['import']['sets_s']:.2f} s of it set-building); one class-{cls_a} replay; "
+        f"head == its root, the db's bytes == the block's; chain set-up "
+        f"{out['chain_setup_s']:.2f} s on {smi}")
     say(f"chain: (a) split: process_slots {split_a['process_slots_s']:.2f} s, set-building "
         f"{split_a['sets_s']:.2f} s, verify {split_a['verify_s']:.3f} s beside STF "
         f"{split_a['stf_s']:.3f} s + root {split_a['root_s']:.3f} s; the chain's own "
@@ -3906,13 +3988,495 @@ def chain_phase(dev, smi, blocked):
         f"{out['votes_for_block_a']} votes for block {slot} on {smi}")
     say(f"chain: (d) regen from the db: {st['d']['wall_s']:.2f} s (the root on the card "
         f"{out['regen_root_s']:.2f} s), == block {nxt}'s state root on {smi}")
-    if busy == 0:
-        say("chain: (e) profiled import: device busy time not measured (no device events)")
+    return out
+
+
+# --- phase 10c ---------------------------------------------------------------
+# Sync on the card, as the JAX package's node syncs: a serving chain on phase
+# 10's genesis serves a segment of blocks through the port's req/resp
+# handlers; a fresh chain range-syncs it over the wire through the verifier
+# pool, a third chain backfills its window as one BACKFILL job, and gossip
+# drains through the network processor into the pool. The chains anchor at
+# genesis: on a later anchor fork choice holds the head at the anchor until
+# a justification past it lands (the store's justified epoch is the anchor's
+# plus one, as in the JAX package), which blocks without attestations never
+# bring.
+
+SYNC_SLOTS = 32  # blocks at slots 35-66 (slots 1-34 empty), across the epoch boundary at 64
+SYNC_BACKFILL_SLOTS = 32  # BASELINE config 5's window, one BACKFILL job
+SYNC_TAMPERED = 10  # the backfill window's block whose proposer signature gets a byte changed
+BLOCKS_BY_RANGE = "/eth2/beacon_chain/req/beacon_blocks_by_range/2/ssz_snappy"
+STATUS = "/eth2/beacon_chain/req/status/1/ssz_snappy"
+
+
+class _MemoryWriter:
+    """The writing half of an in-memory stream: what it writes, the paired
+    `asyncio.StreamReader` reads."""
+
+    def __init__(self, reader):
+        self._reader, self._eof = reader, False
+
+    def write(self, data):
+        self._reader.feed_data(data)
+
+    async def drain(self):
+        return None
+
+    def write_eof(self):
+        if not self._eof:
+            self._eof = True
+            self._reader.feed_eof()
+
+    def close(self):
+        self.write_eof()
+
+
+async def open_wire(node, peer="syncer"):
+    """(dial, transport, close) for req/resp streams that `node` serves with
+    `handle_stream`: TCP on 127.0.0.1, or, where the host refuses a loopback
+    socket, an in-memory `asyncio.StreamReader` pair per stream."""
+    import asyncio
+
+    try:
+        server = await asyncio.start_server(
+            lambda r, w: node.handle_stream(r, w, peer), "127.0.0.1", 0)
+        port = server.sockets[0].getsockname()[1]
+        _, probe = await asyncio.open_connection("127.0.0.1", port)
+        probe.close()
+    except OSError as e:
+        say(f"sync: a loopback socket was refused ({e!r}): in-memory streams")
     else:
-        say(f"chain: (e) profiled import on a fresh chain: device busy {busy:.1f} ms over "
-            f"{out['device_events']} device events; idle {100 * out['idle']:.1f}% of (c)'s "
-            f"unprofiled {wall_ms:.1f} ms ({100 * (1 - busy / prof_wall_ms):.1f}% of the "
-            f"profiled {prof_wall_ms:.1f} ms) on {smi}")
+        async def dial():
+            return await asyncio.open_connection("127.0.0.1", port)
+
+        return dial, "tcp 127.0.0.1", server.close
+
+    tasks = set()
+
+    async def dial():
+        to_server, to_client = asyncio.StreamReader(), asyncio.StreamReader()
+        task = asyncio.ensure_future(node.handle_stream(to_server, _MemoryWriter(to_client), peer))
+        tasks.add(task)
+        task.add_done_callback(tasks.discard)
+        return to_client, _MemoryWriter(to_server)
+
+    return dial, "in-memory streams", lambda: None
+
+
+class WireNet:
+    """The network of range sync and backfill: blocks by range v2 (a fork
+    digest before each block) through a req/resp client; each download's
+    (start, count, blocks, wall s) is kept."""
+
+    def __init__(self, client, dial, types):
+        self.client, self.dial, self.t = client, dial, types
+        self.downloads = []
+
+    async def blocks_by_range(self, peer, start, count):
+        req = self.t.BeaconBlocksByRangeRequest.default()
+        req.start_slot, req.count, req.step = start, count, 1
+        t0 = time.perf_counter()
+        out = await self.client.send_request(self.dial, BLOCKS_BY_RANGE, req)
+        self.downloads.append((start, count, len(out), time.perf_counter() - t0))
+        return out
+
+
+def sync_phase(dev, smi, blocked, count=SYNC_SLOTS):
+    """Phase 10c: range sync, backfill and gossip on phase 10's genesis,
+    config and keys; the segment starts two slots after phase 10's block.
+    Each step sets the Fp launch counts and graph replays to 0 just before
+    and reads them just after; the kernels' `sync_replayed` sums the steps.
+    Replay classes are checked on the card only (graphs exist there only).
+    Lines start `sync:`."""
+    import asyncio
+    import statistics
+
+    from lodestar_tpu_torch import params, ssz
+    from lodestar_tpu_torch.chain import validation
+    from lodestar_tpu_torch.chain.bls import BlsDeviceVerifierPool, BlsVerifierMock
+    from lodestar_tpu_torch.chain.bls.pool import POOL_SIZE_CLASSES
+    from lodestar_tpu_torch.chain.chain import BeaconChain
+    from lodestar_tpu_torch.chain.produce_block import produce_block
+    from lodestar_tpu_torch.crypto.bls import api as bls
+    from lodestar_tpu_torch.db import MemoryDbController
+    from lodestar_tpu_torch.models import batch_verify as bv
+    from lodestar_tpu_torch.network.processor import NetworkProcessor
+    from lodestar_tpu_torch.network.reqresp_node import ReqRespBeaconNode
+    from lodestar_tpu_torch.ops import fp_cuda
+    from lodestar_tpu_torch.scheduler import PriorityClass
+    from lodestar_tpu_torch.ssz import device_htr as dh
+    from lodestar_tpu_torch.state_transition import EpochContext
+    from lodestar_tpu_torch.state_transition.util import compute_signing_root, get_domain
+    from lodestar_tpu_torch.sync import BackfillSync, BatchStatus, RangeSync
+    from lodestar_tpu_torch.sync.backfill import BackfillError
+    from lodestar_tpu_torch.types import ssz_types
+
+    setup = blocked["setup"]
+    p, cfg, sks, anchor_state = setup["p"], setup["cfg"], setup["sks"], setup["genesis"]
+    t = ssz_types(p)
+    start = int(setup["signed"].message.slot) + 2
+    slots = range(start, start + count)
+    first, last, nxt = slots[0], slots[-1], slots[-1] + 1
+    root_anchor = bytes(setup["signed"].message.parent_root)  # the genesis block's root
+    cache = bv._SINGLE_LAUNCH_GRAPHS
+    captures = (cache.captures, dh.HTR_GRAPHS.captures, dh.ROOT_GRAPHS.captures)
+    on_card = dev.type == "cuda"
+    out = {"steps": {}, "slots": [first, last], "blocks": count}
+    replayed_total = dict.fromkeys(fp_cuda.KERNELS, 0)
+    classes_seen = set()
+
+    def Step(name):
+        return CountedStep(dev, out["steps"], replayed_total, classes_seen, name)
+
+    def new_chain(state, verifier, slot):
+        return BeaconChain(anchor_state=state.copy(), bls_verifier=verifier,
+                           db=MemoryDbController(), p=p, cfg=cfg, current_slot=slot)
+
+    def make_pool():
+        return (BlsDeviceVerifierPool(mesh_mode="auto") if on_card
+                else BlsDeviceVerifierPool(device=dev))
+
+    def check_replays(step, want, what):
+        rec = out["steps"][step]
+        if not on_card:
+            return
+        if rec["replays_by_class"] != want:
+            fail(f"sync: {what} replayed {rec['replays_by_class']}, not {want}")
+        missing = [k for k in fp_cuda.KERNELS if rec["fp_replayed"][k] <= 0]
+        if want and missing:
+            fail(f"sync: kernels never launched by {what}: {missing}")
+        if any(rec["fp_eager"].values()):
+            fail(f"sync: eager kernel launches in {what}: {rec['fp_eager']}")
+
+    # (a) set-up: the segment on the host, imported by the serving chain
+    t0 = time.perf_counter()
+    blocks = build_segment(anchor_state, sks, p, cfg, slots)
+    out["build_s"] = time.perf_counter() - t0
+    roots = [b.message.type.hash_tree_root(b.message) for b in blocks]
+    if bytes(blocks[0].message.parent_root) != root_anchor:
+        fail("sync: (a) the segment's first block is not a child of the genesis block")
+    prof = {}
+
+    async def run():
+        serving = new_chain(anchor_state, BlsVerifierMock(True), last)
+        t0 = time.perf_counter()
+        for b in blocks:
+            await serving.process_block(b)
+        out["serving_import_s"] = time.perf_counter() - t0
+        if serving.head_root != roots[-1]:
+            fail("sync: (a) the serving chain's head is not the segment's last block")
+        prof["anchor"] = serving.get_state_by_block_root(roots[-2])
+        dial, out["transport"], close = await open_wire(ReqRespBeaconNode(serving))
+        pool = make_pool()
+        try:
+            await range_sync(serving, dial, pool)
+            await backfill(dial, pool)
+            await gossip(pool)
+            await outage(dial)
+        finally:
+            close()
+            await pool.close()
+
+    async def range_sync(serving, dial, pool):
+        """(b) RangeSync over the wire into a fresh chain on the card's pool."""
+        fresh = out["fresh"] = new_chain(anchor_state, pool, last)
+        client = out["client"] = ReqRespBeaconNode(fresh)
+        status = (await client.send_request(dial, STATUS, client.local_status()))[0]
+        if int(status.head_slot) != last or bytes(status.head_root) != roots[-1]:
+            fail(f"sync: (b) the server's status gives head {int(status.head_slot)}, not {last}")
+        net = WireNet(client, dial, t)
+        imports, downscored = [], []
+
+        def timed(real):
+            async def run(*args, **kwargs):
+                t1 = time.perf_counter()
+                try:
+                    return await real(*args, **kwargs)
+                finally:
+                    imports.append(time.perf_counter() - t1)
+            return run
+
+        with wrapped(fresh, "process_block", timed), Step("b"):
+            res = await RangeSync(chain=fresh, network=net, peers=["server"],
+                                  on_peer_downscore=lambda peer, why: downscored.append(why)
+                                  ).sync(first, last)
+        rec = out["steps"]["b"]
+        download_s = sum(d[3] for d in net.downloads)
+        out["range"] = {
+            "completed": res.completed, "processed": res.processed_blocks,
+            "wall_s": rec["wall_s"], "download_s": download_s,
+            "processing_s": rec["wall_s"] - download_s, "downloads": net.downloads,
+            "import_s": {"min": min(imports), "median": statistics.median(imports),
+                         "max": max(imports)} if imports else None,
+            "head_root": fresh.head_root.hex()}
+        if not res.completed or res.processed_blocks != count or downscored:
+            fail(f"sync: (b) range sync gave completed {res.completed}, "
+                 f"{res.processed_blocks} blocks, downscores {downscored}")
+        if fresh.head_root != serving.head_root:
+            fail("sync: (b) the synced head differs from the server's")
+        check_replays("b", {8: count}, "(b)'s range sync")
+
+    async def backfill(dial, pool):
+        """(c) BackfillSync of one window from the synced head as one BACKFILL
+        job; then the window with one proposer signature changed."""
+        fresh, client = out["fresh"], out["client"]
+        head_state = fresh.get_head_state()
+        window = min(SYNC_BACKFILL_SLOTS, count)
+        verifies = []
+
+        def timed(real):
+            async def run(sets, opts=None):
+                t1 = time.perf_counter()
+                ok = await real(sets, opts)
+                verifies.append({"sets": len(sets), "s": time.perf_counter() - t1, "verdict": ok,
+                                 "priority": getattr(getattr(opts, "priority", None), "name",
+                                                     None)})
+                return ok
+            return run
+
+        third = new_chain(head_state, None, last)
+        net = WireNet(client, dial, t)
+        with wrapped(pool, "verify_signature_sets", timed), Step("c"):
+            persisted = await BackfillSync(
+                chain=third, network=net, bls_verifier=pool, peers=["server"],
+                anchor_state=head_state, batch_slots=window,
+            ).backfill(blocks[-1], terminal_root=root_anchor)
+        stored = dict(third.blocks_db.db.entries_stream())
+        want = {bytes(b.type.serialize(b)) for b in blocks[:-1][-(window - 1):]}
+        out["backfill"] = {"window": [last - window, last], "persisted": persisted,
+                           "wall_s": out["steps"]["c"]["wall_s"],
+                           "download_s": sum(d[3] for d in net.downloads),
+                           "verifies": list(verifies)}
+        if persisted != window - 1 or set(stored.values()) != want:
+            fail(f"sync: (c) backfill persisted {persisted} blocks, not the window's "
+                 f"{window - 1} as served")
+        if len(verifies) != 1 or verifies[0]["sets"] != window - 1 or not verifies[0]["verdict"]:
+            fail(f"sync: (c) backfill verified {verifies}, not one job of {window - 1} sets")
+        check_replays("c", {bv.pad_pow2(window - 1): 1}, "(c)'s backfill job")
+
+        class Tampered(WireNet):
+            async def blocks_by_range(self, peer, start, count):
+                got = [b.copy() for b in await super().blocks_by_range(peer, start, count)]
+                k = min(SYNC_TAMPERED, len(got) - 1)
+                sig = bytearray(bytes(got[k].signature))
+                sig[40] ^= 1
+                got[k].signature = bytes(sig)
+                return got
+
+        fourth = new_chain(head_state, None, last)
+        verifies.clear()
+        with wrapped(pool, "verify_signature_sets", timed), Step("c_tampered"):
+            try:
+                await BackfillSync(
+                    chain=fourth, network=Tampered(client, dial, t), bls_verifier=pool,
+                    peers=["server"], anchor_state=head_state, batch_slots=window,
+                ).backfill(blocks[-1], terminal_root=root_anchor)
+            except BackfillError as e:
+                error = str(e)
+            else:
+                error = None
+        out["backfill"]["tampered"] = {"error": error, "verifies": list(verifies),
+                                       "persisted": len(list(fourth.blocks_db.db.entries_stream())),
+                                       "wall_s": out["steps"]["c_tampered"]["wall_s"]}
+        if error != "segment proposer-signature batch invalid":
+            fail(f"sync: (c) the tampered window gave {error!r}")
+        if out["backfill"]["tampered"]["persisted"]:
+            fail("sync: (c) the tampered window persisted blocks")
+
+    async def gossip(pool):
+        """(d) a produced block, the aggregates and an attestation of the
+        synced head's slot, pushed by topic into NetworkProcessor and
+        drained with execute_work."""
+        fresh = out["fresh"]
+        t_b = time.perf_counter()
+        fresh.on_slot(nxt)
+        state = fresh.get_head_state()
+        ctx = EpochContext(state, p)
+        objects = [("beacon_aggregate_and_proof", f"aggregate {ci}",
+                    signed_aggregate(fresh, sks, last, ci))
+                   for ci in range(ctx.get_committee_count_per_slot(last // p.SLOTS_PER_EPOCH))]
+        objects.append(("beacon_attestation", "attestation 0",
+                        single_attestation(fresh, sks, last, 0)))
+        proposer = ctx.get_beacon_proposer(nxt)
+        reveal = bls.sign(sks[proposer], compute_signing_root(
+            ssz.uint64, nxt // p.SLOTS_PER_EPOCH, get_domain(state, params.DOMAIN_RANDAO)))
+        block = sign_block(produce_block(fresh, slot=nxt, randao_reveal=reveal), sks[proposer],
+                           state, p)
+        objects.insert(0, ("beacon_block", f"block {nxt}", block))
+        out["gossip_build_s"] = time.perf_counter() - t_b
+        cur, records = {}, []
+
+        def timed_validation(real):
+            def run(*args, **kwargs):
+                t1 = time.perf_counter()
+                try:
+                    return real(*args, **kwargs)
+                finally:
+                    cur["rec"]["validate_s"] += time.perf_counter() - t1
+            return run
+
+        def timed_pool(real):
+            async def run(sets, opts=None):
+                before = bls_replays(dev)
+                t1 = time.perf_counter()
+                ok = await real(sets, opts)
+                rec, after = cur["rec"], bls_replays(dev)
+                rec["pool_s"] += time.perf_counter() - t1
+                rec["sets"] += len(sets)
+                rec["pool_verdict"] = ok
+                for k in after:
+                    if after[k] != before.get(k, 0):
+                        rec["replay_classes"][k] = (rec["replay_classes"].get(k, 0) + after[k]
+                                                    - before.get(k, 0))
+                return ok
+            return run
+
+        def timed_handler(topic, real):
+            async def run(message, peer):
+                rec = cur["rec"] = {"topic": topic, "validate_s": 0.0, "pool_s": 0.0, "sets": 0,
+                                    "replay_classes": {}, "verdict": "error"}
+                records.append(rec)
+                t1 = time.perf_counter()
+                try:
+                    await real(message, peer)
+                    rec["verdict"] = "accepted"
+                finally:
+                    rec["wall_s"] = time.perf_counter() - t1
+            return run
+
+        names = ("validate_gossip_block", "validate_gossip_aggregate_and_proof",
+                 "validate_gossip_attestation")
+        with contextlib.ExitStack() as stack:
+            for name in names:
+                stack.enter_context(wrapped(validation, name, timed_validation))
+            proc = NetworkProcessor(fresh)
+        proc.handlers = {k: timed_handler(k, h) for k, h in proc.handlers.items()}
+        for topic, _, obj in objects:
+            if not proc.push(topic, obj, peer="server"):
+                fail(f"sync: (d) the {topic} queue refused an object")
+        # the handlers hold the timed validation functions they were built with
+        with wrapped(fresh.bls, "verify_signature_sets", timed_pool), Step("d"):
+            drained = await proc.execute_work()
+        out["gossip"] = {"drained": drained, "processed": proc.processed, "errors": proc.errors,
+                         "pending": proc.pending, "objects": records,
+                         "head_slot": int(fresh.get_head_state().slot)}
+        if drained != len(objects) or proc.processed != len(objects) or proc.errors:
+            fail(f"sync: (d) the processor drained {drained} of {len(objects)} objects, "
+                 f"processed {proc.processed}, errors {proc.errors}")
+        if fresh.head_root != block.message.type.hash_tree_root(block.message):
+            fail(f"sync: (d) the head did not move to the slot-{nxt} block")
+        for rec in records:
+            if on_card and rec["replay_classes"] != {bv.pad_pow2(rec["sets"]): 1}:
+                fail(f"sync: (d) the {rec['topic']} object replayed {rec['replay_classes']}, "
+                     f"not one class-{bv.pad_pow2(rec['sets'])} replay")
+        if on_card and any(out["steps"]["d"]["fp_eager"].values()):
+            fail(f"sync: (d) eager kernel launches: {out['steps']['d']['fp_eager']}")
+
+    async def outage(dial):
+        """(b') a device error in the pool's lanes during range sync (of the
+        segment's last block, on a chain anchored at the server's state of
+        the slot before): the round pauses with the batch unspent and no
+        peer downscored."""
+        broken_pool, calls, downscored = make_pool(), [], []
+
+        def broken(*args, **kwargs):
+            calls.append(1)
+            raise RuntimeError("injected device error")
+
+        for lane in broken_pool.mesh.lanes:
+            lane.verify_fn = broken
+            if lane.verify_prepared_fn is not None:
+                lane.verify_prepared_fn = broken
+        chain = new_chain(prof["anchor"], broken_pool, last)
+        try:
+            with Step("b_outage"):
+                res = await RangeSync(chain=chain, network=WireNet(out["client"], dial, t),
+                                      peers=["server"],
+                                      on_peer_downscore=lambda peer, why: downscored.append(why)
+                                      ).sync(last, last)
+        finally:
+            await broken_pool.close()
+        fb = res.failed_batch
+        out["outage"] = {"completed": res.completed, "calls": len(calls),
+                         "status": fb.status.name if fb else None,
+                         "processing_attempts": fb.processing_attempts if fb else None,
+                         "downscored": downscored}
+        if (res.completed or fb is None or fb.status is not BatchStatus.AWAITING_PROCESSING
+                or fb.processing_attempts or downscored or not calls
+                or chain.head_root != roots[-2]):
+            fail(f"sync: (b') a device error did not pause range sync as a verifier outage: "
+                 f"{out['outage']}")
+        check_replays("b_outage", {}, "(b')'s failed import")
+
+    asyncio.run(run())
+
+    # (e) one import of the segment's last block under the profiler, on a
+    # fresh chain anchored at the server's state of the slot before
+    t_e = time.perf_counter()
+    chain = new_chain(prof["anchor"], None, last)
+
+    async def again():
+        chain.bls = make_pool()
+        try:
+            return await chain.process_block(blocks[-1], priority=PriorityClass.RANGE_SYNC)
+        finally:
+            await chain.bls.close()
+
+    got, prof_wall_ms, events = profiled(lambda: asyncio.run(again()))
+    if got != roots[-1]:
+        fail("sync: (e) the profiled import returned another root")
+    busy = busy_ms(events)
+    median_ms = 1e3 * out["range"]["import_s"]["median"]
+    out.update(busy_ms=busy, prof_wall_ms=prof_wall_ms, device_events=len(device_events(events)),
+               idle=(1 - busy / median_ms) if busy else None,
+               profile_s=time.perf_counter() - t_e)
+
+    unwarmed = sorted(classes_seen - set(POOL_SIZE_CLASSES))
+    if unwarmed:
+        fail(f"sync: replays at classes phase 7 did not warm: {unwarmed}")
+    now = (cache.captures, dh.HTR_GRAPHS.captures, dh.ROOT_GRAPHS.captures)
+    if now != captures:
+        fail(f"sync: graphs were captured in the phase (BLS, HTR level, HTR root: "
+             f"{captures} -> {now})")
+    for k in ("fresh", "client"):
+        out.pop(k)
+    out["replayed"] = replayed_total
+
+    st, rng, bf, gs = out["steps"], out["range"], out["backfill"], out["gossip"]
+    say(f"sync: (a) {count} Capella blocks at slots {first}-{last} on phase 10's genesis (no "
+        f"attestations) built on the host in {out['build_s']:.1f} s, imported by the serving "
+        f"chain (mock verifier) in "
+        f"{out['serving_import_s']:.1f} s; transport {out['transport']}")
+    say(f"sync: (b) RangeSync({first}, {last}) over the wire: {rng['processed']} imports in "
+        f"{rng['wall_s']:.2f} s = download {rng['download_s']:.2f} s + processing "
+        f"{rng['processing_s']:.2f} s; per import min/median/max {rng['import_s']['min']:.3f} / "
+        f"{rng['import_s']['median']:.3f} / {rng['import_s']['max']:.3f} s; replays "
+        f"{st['b']['replays_by_class']}, Fp launches {st['b']['fp_replayed']}; head "
+        f"{rng['head_root'][:16]} == the server's on {smi}")
+    say(f"sync: (b') a device error in the pool: range sync paused ({out['outage']['status']}, "
+        f"{out['outage']['processing_attempts']} attempts spent, no peer downscored), "
+        f"{out['outage']['calls']} failed lane calls, no replay")
+    v = bf["verifies"][0]
+    say(f"sync: (c) backfill of the window [{bf['window'][0]}, {bf['window'][1]}): "
+        f"{bf['persisted']} blocks persisted in {bf['wall_s']:.2f} s = download "
+        f"{bf['download_s']:.2f} s + one BACKFILL job of {v['sets']} sets {v['s']:.3f} s "
+        f"(replays {st['c']['replays_by_class']}) on {smi}; a byte of one signature changed: "
+        f"{bf['tampered']['error']!r}, {bf['tampered']['persisted']} persisted, replays "
+        f"{st['c_tampered']['replays_by_class']}")
+    for rec in gs["objects"]:
+        say(f"sync: (d) {rec['topic']}: validation {rec['validate_s']:.3f} s, pool "
+            f"{rec['pool_s']:.3f} s ({rec['sets']} sets, replays {rec['replay_classes']}), "
+            f"{rec['verdict']}, wall {rec['wall_s']:.3f} s on {smi}")
+    say(f"sync: (d) NetworkProcessor drained {gs['drained']} objects in {st['d']['wall_s']:.2f} s "
+        f"(built in {out['gossip_build_s']:.2f} s): processed {gs['processed']}, errors "
+        f"{gs['errors']}, head at slot {gs['head_slot']}")
+    if busy == 0:
+        say("sync: (e) profiled import: device busy time not measured (no device events)")
+    else:
+        say(f"sync: (e) profiled import of block {last}: device busy {busy:.1f} ms over "
+            f"{out['device_events']} device events; idle {100 * out['idle']:.1f}% of (b)'s "
+            f"median import {median_ms:.1f} ms ({100 * (1 - busy / prof_wall_ms):.1f}% of the "
+            f"profiled {prof_wall_ms:.1f} ms; the step {out['profile_s']:.1f} s) on {smi}")
     return out
 
 
@@ -4069,6 +4633,8 @@ def main():
     blocked = phase("block", block_import, dev, smi)
     # 10b. the same block, gossip and a produced block through the port's BeaconChain
     chained = phase("chain", chain_phase, dev, smi, blocked)
+    # 10c. range sync, backfill and gossip over the wire into the port's chain
+    synced = phase("sync", sync_phase, dev, smi, blocked)
     # 11. check against the CPU path
     phase("check", check_against_cpu, dev)
     if parent is not None:
@@ -4112,6 +4678,7 @@ def main():
             "block_import_replayed": blocked["import"]["fp_replayed"][name],
             "launches_per_block_import": blocked["fp_launches_per_replay"][name],
             "chain_replayed": chained["replayed"][name],
+            "sync_replayed": synced["replayed"][name],
         }
         for label, per_rows in runs.items():
             by_rows = per_rows[name]
@@ -4156,6 +4723,7 @@ def main():
     say("kzg: " + json.dumps({k: v for k, v in kzged.items() if not k.endswith("_rows")}))
     say("block: " + json.dumps({k: v for k, v in blocked.items() if k != "setup"}))
     say("chain: " + json.dumps({k: v for k, v in chained.items() if k != "replayed"}))
+    say("sync: " + json.dumps({k: v for k, v in synced.items() if k != "replayed"}))
     say(f"result: {main_run['sigs_per_s']:.1f} sigs/s verify-only, "
         f"{main_run['bytes_to_verdict_sigs_per_s']:.1f} sigs/s bytes to verdict ({merged}-set "
         f"merged batch, split schedule, device prep {main_run['prep_s']:.3f} s); single launch "

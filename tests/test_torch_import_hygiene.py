@@ -77,8 +77,11 @@ def test_every_module_imports_without_jax():
     # altair, bellatrix, capella, deneb, genesis and signature_sets; and the
     # chain: utils.queue, fork_choice and its proto_array, db and its schema,
     # controller and repository, chain's op_pools, sync_pools, clock, regen,
-    # archiver, validation, produce_block and chain
-    assert "imported" in proc.stdout and int(proc.stdout.split()[-1]) >= 84
+    # archiver, validation, produce_block and chain; and the network side:
+    # utils.snappy, reqresp and its encoding, protocols, rate_limiter and
+    # reqresp, network and its gossip, peers, reqresp_node and processor, sync
+    # and its range_sync, backfill and unknown_block
+    assert "imported" in proc.stdout and int(proc.stdout.split()[-1]) >= 99
 
 
 def _imported_top_levels(path):
@@ -93,7 +96,7 @@ def _imported_top_levels(path):
 
 def test_no_module_imports_jax_or_the_jax_package():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) >= 77
+    assert len(files) >= 92
     serving = {"chain/bls/pool.py", "chain/bls/mesh.py", "chain/bls/interface.py",
                "scheduler/core.py", "scheduler/occupancy.py", "slo.py", "tracing.py",
                "logger.py", "utils/__init__.py", "offload/resilience.py",
@@ -114,7 +117,13 @@ def test_no_module_imports_jax_or_the_jax_package():
              "db/__init__.py", "db/schema.py", "db/controller.py", "db/repository.py"} | {
         f"chain/{m}.py" for m in ("op_pools", "sync_pools", "clock", "regen", "archiver",
                                   "validation", "produce_block", "chain")}
-    assert serving | htr | kzg | offload | sharded | stf | chain <= {
+    network = {"utils/snappy.py", "reqresp/__init__.py", "reqresp/encoding.py",
+               "reqresp/protocols.py", "reqresp/rate_limiter.py", "reqresp/reqresp.py",
+               "network/__init__.py", "network/gossip.py", "network/peers.py",
+               "network/reqresp_node.py", "network/processor.py", "sync/__init__.py",
+               "sync/range_sync.py", "sync/backfill.py", "sync/unknown_block.py"}
+    assert len(network) == 15
+    assert serving | htr | kzg | offload | sharded | stf | chain | network <= {
         str(f.relative_to(PORT)) for f in files if PORT in f.parents}
     bad = [
         f"{f.relative_to(REPO)}:{line} imports {name}"
