@@ -28,11 +28,11 @@ Phases, in order; any failure exits non-zero and prints no result:
             False through prep's own ok bits. Then 16 copies of the 128
             sets' bytes and messages (bench.py's merge) go through
             `build_device_inputs(..., size=2048)` on device prep (1 warm-up,
-            3 timed runs); the 128 unique sets' prepped arrays must equal
+            TIMED_RUNS timed runs); the 128 unique sets' prepped arrays must equal
             the pure-Python oracle's prep on canonical values (the oracle
             runs once, on 128 sets, outside every timed window); and the
             device-prepped 2048 sets go through `device_batch_verify` with
-            fresh blinding (1 warm-up, 3 timed runs), all True. Prints the
+            fresh blinding (1 warm-up, TIMED_RUNS timed), all True. Prints the
             prep time per 2048 sets, the oracle's per 128, and
             bytes-to-verdict sigs/s beside verify-only sigs/s. Launch
             counts are reset just before and read just after; every kernel
@@ -56,7 +56,7 @@ Phases, in order; any failure exits non-zero and prints no result:
             valid (True), swapped (False), invalid points (False, and the
             replay's batch_valid False), valid again, all on one captured
             graph; then the 2048 merged sets (1 warm-up with the capture,
-            3 timed): capture and instantiate s, the graph's node count
+            TIMED_RUNS timed): capture and instantiate s, the graph's node count
             (`cuGraphGetNodes`), its pool's reserved memory, bytes-to-
             verdict s and sigs/s beside the split schedule's of phase 4,
             the host byte stage alone, copy in + replay + verdict read, one
@@ -148,7 +148,7 @@ Phases, in order; any failure exits non-zero and prints no result:
             Then counts and replays reset: (a) the road's batch (the first
             BATCH of the merged sets, so one shard class serves the whole
             phase) True and the tampered copy False, as the single launch
-            says, each in n_shards + 1 dispatches, 3 timed, sigs/s; (e)
+            says, each in n_shards + 1 dispatches, TIMED_RUNS timed, sigs/s; (e)
             the pool over two lanes with the real collective: 8 range-sync
             jobs of 128 True in 8 sharded launches with 0 fallbacks, one
             job with a bad signature False through the per-job retry, no
@@ -168,9 +168,9 @@ Phases, in order; any failure exits non-zero and prints no result:
             root equal to hashlib's; pair-hashes/s. (b) the collector on a
             2^18-chunk stack with 4096 dirty chunks a flush, 5 flushes, each
             on the device with at most 18 launches; chunks/s. (c) a mainnet
-            Capella BeaconState with 2^20 validators: a cold root, 2
-            epoch-boundary rounds, 2 slot-shaped rounds and a profiled epoch
-            round through `state_hash_tree_root`, each root equal to a second
+            Capella BeaconState with 2^20 validators: a cold root,
+            HTR_ROUNDS epoch-boundary round(s), as many slot-shaped rounds
+            and a profiled epoch round through `state_hash_tree_root`, each root equal to a second
             tracker's on the same state hashed with hashlib only (no launch,
             no replay); each round prints host prepare s, flush s, launches,
             replays by pair class and captures (none after the cold root).
@@ -273,6 +273,29 @@ Phases, in order; any failure exits non-zero and prints no result:
             and verdict per object; processed 4, errors 0, the head at 67);
             (e) block 66 imported under the profiler (busy ms, idle share of
             the median import). No graph captured. Lines start `sync:`.
+10d. p2p    two `Libp2pBeaconNetwork` services on 127.0.0.1 over phase 10c's
+            chains (`p2p_run`), counts and replays set to 0 just before each
+            step and read just after. A serves 10c's serving chain (mock
+            verifier) after importing 10c's slot-67 block; B serves 10c's
+            synced chain on a fresh `BlsDeviceVerifierPool(mesh_mode="auto")`.
+            (a) B knows only A's ENR: its discovery loop finds A through
+            discv5 over UDP (WHOAREYOU, handshake, FINDNODE) and dials it
+            (TCP, multistream, noise XX, mplex); the status handshake runs
+            both ways; no replay. (b) A imports 4 blocks (slots 68-71, built
+            on the host) with its mock; `RangeSync` on B downloads them from
+            A over blocks-by-range v2 on an mplex stream inside the noise
+            channel: 4 imports, one class-8 replay each, B's head A's. (c) A
+            publishes the slot-72 block on gossipsub; B's validator decodes
+            it, its node object pushes it into `NetworkProcessor` and the
+            drain loop imports it (one class-8 replay, head at 72); then an
+            aggregate of slot 71 on `beacon_aggregate_and_proof` (True, one
+            class-8 replay). (d) the slot-73 block with one byte of its
+            proposer signature changed: rejected on the pool's False verdict
+            (one class-8 replay), B's head stays at 72. (e) both stop: B's
+            goodbye answered, no task left; the noise frames, bytes and mplex
+            streams each side sent. No graph captured, no eager launch, no
+            in-memory stand-in: a refused loopback socket fails the phase.
+            Lines start `p2p:`.
 11. check   a Miller loop + final exponentiation of two pairs on the card
             equals the CPU path (the plain versions) limb for limb, and
             equals e(P, Q) from the host pairing check on canonical values.
@@ -354,7 +377,7 @@ N_KERNEL_CHECK = tuple(sorted({*N_TIMED, *PREP_ROWS, *MANY_ROWS, *POOL_ROWS, *KZ
 N_COMPARE = 110646
 BATCH = 128  # sets per gossip job
 MERGE_JOBS = 16  # jobs merged into one RLC batch
-TIMED_RUNS = 3
+TIMED_RUNS = 2  # timed runs after the warm-up in phases 4, 6 and 7d
 
 # H100 SXM peaks for the bound (NVIDIA's data sheet and the Hopper
 # architecture white paper): 3.35 TB/s of HBM; int32 multiply-adds at
@@ -2370,7 +2393,7 @@ HTR_STACK_DEPTH = 18  # (b) the collector: a 2^18-chunk stack ...
 HTR_DIRTY = 4096  # ... and 4096 dirty chunks per flush
 HTR_FLUSHES = 5
 HTR_VALIDATORS = 1 << 20  # (c) a mainnet Capella BeaconState
-HTR_ROUNDS = 2  # epoch-boundary rounds, and as many slot-shaped rounds
+HTR_ROUNDS = 1  # epoch-boundary rounds, and as many slot-shaped rounds
 # The least int32 operations one pair hash needs (a 64-byte message, two
 # compressions), with a rotation as one funnel shift: a round is Sigma1
 # (3 rotations, 2 xors), Ch (3), T1 (4 adds), Sigma0 (5), Maj (4) and the
@@ -2751,7 +2774,7 @@ def htr(dev, smi):
 # The commitment's 4,096-point G1 MSM and every pairing-product check are one
 # CUDA-graph replay each (classes 4,096 and 2), on the five Fp kernels.
 
-KZG_TIMED = 5  # timed commitments after the warm-up
+KZG_TIMED = 3  # timed commitments after the warm-up
 KZG_SEED = 4844
 
 
@@ -4158,7 +4181,7 @@ def sync_phase(dev, smi, blocked, count=SYNC_SLOTS):
     prof = {}
 
     async def run():
-        serving = new_chain(anchor_state, BlsVerifierMock(True), last)
+        serving = prof["serving"] = new_chain(anchor_state, BlsVerifierMock(True), last)
         t0 = time.perf_counter()
         for b in blocks:
             await serving.process_block(b)
@@ -4357,6 +4380,7 @@ def sync_phase(dev, smi, blocked, count=SYNC_SLOTS):
         # the handlers hold the timed validation functions they were built with
         with wrapped(fresh.bls, "verify_signature_sets", timed_pool), Step("d"):
             drained = await proc.execute_work()
+        prof["block"] = block
         out["gossip"] = {"drained": drained, "processed": proc.processed, "errors": proc.errors,
                          "pending": proc.pending, "objects": records,
                          "head_slot": int(fresh.get_head_state().slot)}
@@ -4438,8 +4462,10 @@ def sync_phase(dev, smi, blocked, count=SYNC_SLOTS):
     if now != captures:
         fail(f"sync: graphs were captured in the phase (BLS, HTR level, HTR root: "
              f"{captures} -> {now})")
-    for k in ("fresh", "client"):
-        out.pop(k)
+    # phase 10d goes on from the serving chain, the synced chain and its block
+    out["chains"] = {"serving": prof["serving"], "synced": out.pop("fresh"),
+                     "block": prof["block"]}
+    out.pop("client")
     out["replayed"] = replayed_total
 
     st, rng, bf, gs = out["steps"], out["range"], out["backfill"], out["gossip"]
@@ -4477,6 +4503,435 @@ def sync_phase(dev, smi, blocked, count=SYNC_SLOTS):
             f"{out['device_events']} device events; idle {100 * out['idle']:.1f}% of (b)'s "
             f"median import {median_ms:.1f} ms ({100 * (1 - busy / prof_wall_ms):.1f}% of the "
             f"profiled {prof_wall_ms:.1f} ms; the step {out['profile_s']:.1f} s) on {smi}")
+    return out
+
+
+# --- phase 10d ---------------------------------------------------------------
+# Two `Libp2pBeaconNetwork` services on 127.0.0.1 over phase 10c's chains: B
+# finds A through discv5 over UDP and dials it (TCP, multistream, noise XX,
+# mplex), range-syncs from it over blocks-by-range v2 on an mplex stream, and
+# imports what A publishes on gossipsub through its `NetworkProcessor`.
+
+P2P_SYNC_BLOCKS = 4  # blocks range-synced over libp2p (slots 68-71 after phase 10c)
+P2P_TAMPERED_BYTE = 40  # the byte of the slot-73 block's proposer signature changed
+
+
+class P2pCheckFailed(RuntimeError):
+    """A check of phase 10d's scenario failed."""
+
+
+class GossipNode:
+    """The part of the JAX package's `BeaconNode` (`lodestar_tpu/node`) that
+    `Libp2pBeaconNetwork` calls: `on_gossip` pushes a decoded gossip object
+    into the node's `NetworkProcessor`, and a drain loop runs its
+    `execute_work`, as `BeaconNode.on_gossip` and `start_gossip_drain` do."""
+
+    def __init__(self, processor):
+        self.processor = processor
+        self.arrivals = []  # perf_counter of each object pushed
+        self._drain = None
+
+    def on_gossip(self, topic, message, peer=""):
+        self.arrivals.append(time.perf_counter())
+        return self.processor.push(topic, message, peer)
+
+    def start_drain(self, interval_s=0.05):
+        import asyncio
+
+        async def loop():
+            while True:
+                try:
+                    n = await self.processor.execute_work()
+                except Exception as e:  # noqa: BLE001 - keep draining, as the node does
+                    say(f"p2p: gossip drain error {e!r}")
+                    n = 0
+                await asyncio.sleep(0 if n else interval_s)
+
+        self._drain = asyncio.ensure_future(loop())
+
+    async def stop(self):
+        import asyncio
+
+        if self._drain is not None:
+            self._drain.cancel()
+            try:
+                await self._drain
+            except asyncio.CancelledError:
+                pass
+            self._drain = None
+
+
+def p2p_modules():
+    """The port's modules that phase 10d drives, by the names `p2p_run`
+    reads (a test passes the JAX package's under the same names)."""
+    from types import SimpleNamespace
+
+    from lodestar_tpu_torch.network import gossipsub, processor, service
+    from lodestar_tpu_torch.network.transport import host, mplex, noise
+    from lodestar_tpu_torch.sync import range_sync
+
+    return SimpleNamespace(service=service, processor=processor, range_sync=range_sync,
+                           gossipsub=gossipsub, host=host, mplex=mplex, noise=noise)
+
+
+async def p2p_run(net, a_chain, b_chain, blocks, make_aggregate, step=None, wait_s=60.0):
+    """Phase 10d's scenario through the modules of `net` (`p2p_modules`).
+
+    A serves `a_chain` (head H) and B `b_chain` (head H, its verifier the one
+    under test); `blocks` are consecutive signed blocks on H: the blocks to
+    range-sync, then the block to gossip, then the block to tamper with.
+    `make_aggregate(chain)` gives a SignedAggregateAndProof of the last synced
+    slot on A's chain. `step(name)` is a context manager around each counted
+    step. (a) A starts with discv5 on; B starts knowing only A's ENR, finds
+    A over UDP and dials it; the status handshake runs both ways; (b) A
+    imports the sync blocks (its mock) and B range-syncs them from A over
+    libp2p; (c) A publishes the next block on gossipsub and B imports it
+    through its processor, then A publishes the aggregate; (d) A publishes
+    the last block with one byte of its proposer signature changed: B's
+    processor rejects it and its head stays; (e) both stop, B says goodbye,
+    B's verifier is closed and no task is left. Returns what each step saw;
+    raises P2pCheckFailed."""
+    import asyncio
+
+    def check(ok, msg):
+        if not ok:
+            raise P2pCheckFailed(f"p2p: {msg}")
+
+    def root_of(b):
+        return b.message.type.hash_tree_root(b.message)
+
+    step = step or (lambda name: contextlib.nullcontext())
+    sync_blocks, gossip_block, to_tamper = blocks[:-2], blocks[-2], blocks[-1]
+    first, last = int(sync_blocks[0].message.slot), int(sync_blocks[-1].message.slot)
+    out = {}
+    ids, wire = {}, {side: {"noise_frames": 0, "bytes": 0, "mplex_streams": 0}
+                     for side in "AB"}
+
+    def sender(conn):
+        return "A" if conn.remote_peer == ids.get("B") else "B"
+
+    def count_frames(real):
+        cap = net.noise.NoiseConnection.MAX_PLAINTEXT
+
+        async def write_msg(self, data):
+            n = max(1, -(-len(data) // cap))
+            rec = wire[sender(self)]
+            rec["noise_frames"] += n
+            rec["bytes"] += len(data) + n * 18  # 2-byte length + 16-byte tag a frame
+            return await real(self, data)
+        return write_msg
+
+    def count_streams(real):
+        def open_stream(self):
+            wire[sender(self._conn)]["mplex_streams"] += 1
+            return real(self)
+        return open_stream
+
+    def timed_into(log):
+        def make(real):
+            async def run(*args, **kwargs):
+                t0 = time.perf_counter()
+                got = await real(*args, **kwargs)
+                log.append((t0, time.perf_counter(), got))
+                return got
+            return run
+        return make
+
+    verdicts = []
+
+    def timed_pool(real):
+        async def run(sets, opts=None):
+            t0 = time.perf_counter()
+            ok = await real(sets, opts)
+            verdicts.append({"sets": len(sets), "s": time.perf_counter() - t0, "verdict": ok})
+            return ok
+        return run
+
+    nodes = {side: GossipNode(net.processor.NetworkProcessor(c))
+             for side, c in (("A", a_chain), ("B", b_chain))}
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(wrapped(net.noise.NoiseConnection, "write_msg", count_frames))
+        stack.enter_context(wrapped(net.mplex.Mplex, "open_stream", count_streams))
+        stack.enter_context(wrapped(b_chain.bls, "verify_signature_sets", timed_pool))
+        # (a) the two services; B knows A only by its ENR
+        t0 = time.perf_counter()
+        A = net.service.Libp2pBeaconNetwork(node=nodes["A"], chain=a_chain, discv5_port=0,
+                                            target_peers=1)
+        ids["A"] = A.peer_id
+        a_port = await A.start("127.0.0.1")
+        B = net.service.Libp2pBeaconNetwork(node=nodes["B"], chain=b_chain, discv5_port=0,
+                                            discv5_bootnodes=[A.discv5.enr], target_peers=1)
+        ids["B"] = B.peer_id
+        statuses, bootstraps, dials, requests = [], [], [], []
+        stack.enter_context(wrapped(B, "status", timed_into(statuses)))
+        for node in nodes.values():
+            node.start_drain()
+        kinds = ("beacon_block", "beacon_aggregate_and_proof")
+        topics = {k: net.service.topic_string(k, A.current_fork_digest()) for k in kinds}
+        with step("a"):
+            t_b = time.perf_counter()
+            await B.start("127.0.0.1")
+            # B's discovery loop has not run yet: time its discv5 pass and its dial
+            stack.enter_context(wrapped(B.discv5, "bootstrap", timed_into(bootstraps)))
+            stack.enter_context(wrapped(B.host, "connect", timed_into(dials)))
+            deadline = time.perf_counter() + wait_s
+            while not (statuses and A.peer_id in B.host.peers() and B.peer_id in A.host.peers()
+                       and all(t in A.gossip.peer_topics.get(B.peer_id, ()) for t in topics.values())
+                       and all(t in B.gossip.peer_topics.get(A.peer_id, ()) for t in topics.values())):
+                check(time.perf_counter() < deadline, f"B did not reach A in {wait_s} s: "
+                      f"{len(bootstraps)} discv5 passes, {len(dials)} dials, "
+                      f"{len(statuses)} statuses")
+                await asyncio.sleep(0.005)
+        for router in (A.gossip, B.gossip):
+            await router.heartbeat()  # form the meshes now, not at the next 0.7 s tick
+        status = statuses[0][2]
+        check(status is not None and bytes(status.head_root) == a_chain.head_root,
+              "the status B received does not give A's head")
+        pc = B.host.connections[A.peer_id]
+        out["a"] = {
+            "start_a_s": t_b - t0, "discovery_s": bootstraps[0][1] - t_b if bootstraps else None,
+            "discv5_table": len(B.discv5.table), "discovered_a": A.discv5.node_id in B.discv5.table,
+            "connect_s": dials[0][1] - dials[0][0] if dials else None,
+            "dialed": [d[2].peer_id == A.peer_id for d in dials],
+            "status_s": statuses[0][1] - t_b, "ready_s": time.perf_counter() - t_b,
+            "status": {"head_slot": int(status.head_slot), "head_root": bytes(
+                status.head_root).hex(), "finalized_epoch": int(status.finalized_epoch),
+                "fork_digest": bytes(status.fork_digest).hex()},
+            "transport": (f"tcp {pc.addr[0]}:{a_port}, multistream {net.host.NOISE_PROTO} "
+                          f"XX, {net.host.MPLEX_PROTO}, gossipsub {net.gossipsub.PROTOCOL_ID}, "
+                          f"discv5 udp {A.discv5.port}"),
+            "mesh_peers": {k: len(B.gossip.mesh.get(t, ())) for k, t in topics.items()}}
+        check(out["a"]["dialed"][:1] == [True] and out["a"]["discovered_a"],
+              f"B did not dial A from its discv5 table: {out['a']}")
+        check(out["a"]["mesh_peers"] == dict.fromkeys(kinds, 1),
+              f"B's meshes are {out['a']['mesh_peers']}, not A on each topic")
+
+        # (b) A imports the sync blocks with its mock; B range-syncs them over libp2p
+        for c in (a_chain, b_chain):
+            c.on_slot(last)
+        t0 = time.perf_counter()
+        for b in sync_blocks:
+            await a_chain.process_block(b)
+        out["a_import_s"] = time.perf_counter() - t0
+        check(a_chain.head_root == root_of(sync_blocks[-1]), "A's head is not its last block")
+        downloads, imports, downscored = [], [], []
+        with wrapped(B, "blocks_by_range", timed_into(downloads)), \
+                wrapped(b_chain, "process_block", timed_into(imports)), step("b"):
+            t0 = time.perf_counter()
+            res = await net.range_sync.RangeSync(
+                chain=b_chain, network=B, peers=[A.peer_id],
+                on_peer_downscore=lambda peer, why: downscored.append(why)).sync(first, last)
+            wall = time.perf_counter() - t0
+        out["b"] = {"completed": res.completed, "processed": res.processed_blocks,
+                    "wall_s": wall, "downloads": [(d[1] - d[0], len(d[2])) for d in downloads],
+                    "download_s": sum(d[1] - d[0] for d in downloads),
+                    "import_s": [i[1] - i[0] for i in imports],
+                    "pool": verdicts[-len(imports):] if imports else [],
+                    "head_root": b_chain.head_root.hex()}
+        check(res.completed and res.processed_blocks == len(sync_blocks) and not downscored,
+              f"range sync over libp2p gave {out['b']}, downscores {downscored}")
+        check(b_chain.head_root == a_chain.head_root, "B's head after range sync is not A's")
+        aggregate = make_aggregate(a_chain)
+
+        # (c) a block, then an aggregate, published by A on gossipsub
+        proc, handled = nodes["B"].processor, []
+
+        def timed_handler(real):
+            async def run(message, peer):
+                t1 = time.perf_counter()
+                try:
+                    await real(message, peer)
+                finally:
+                    handled.append((t1, time.perf_counter()))
+            return run
+
+        proc.handlers = {k: timed_handler(h) for k, h in proc.handlers.items()}
+
+        async def gossip(name, publish, slot=None):
+            """Publish on A; wait for B's processor to finish the object."""
+            if slot is not None:
+                for c in (a_chain, b_chain):
+                    c.on_slot(slot)
+            processed, errors, n_verdicts = proc.processed, proc.errors, len(verdicts)
+            with step(name):
+                t0 = time.perf_counter()
+                sent = await publish()
+                while proc.processed + proc.errors == processed + errors:
+                    check(time.perf_counter() - t0 < wait_s, f"{name}: no verdict in {wait_s} s")
+                    await asyncio.sleep(0.002)
+                wall = time.perf_counter() - t0
+            got = verdicts[n_verdicts:]
+            arrived, (h0, h1) = nodes["B"].arrivals[-1], handled[-1]
+            rec = out[name] = {
+                "sent_to": sent, "publish_to_verdict_s": wall,
+                # A's publish to B's push into the processor (gossipsub, noise,
+                # mplex, B's decode), the queue hop to the drain loop, then the
+                # handler: validation and the import or the verify, the pool's
+                # share of it apart
+                "to_processor_s": arrived - t0, "queue_s": h0 - arrived,
+                "handler_s": h1 - h0,
+                "pool_s": sum(v["s"] for v in got), "sets": sum(v["sets"] for v in got),
+                "pool_verdicts": [v["verdict"] for v in got],
+                "outcome": "processed" if proc.processed > processed else "error",
+                "head_slot": int(b_chain.get_head_state().slot)}
+            return rec
+
+        slot = int(gossip_block.message.slot)
+        for c in (a_chain, b_chain):
+            c.on_slot(slot)
+        await a_chain.process_block(gossip_block)  # the proposer's node imports, then publishes
+        rec = await gossip("c_block", lambda: A.publish_block(gossip_block))
+        check(rec["pool_verdicts"] == [True] and rec["outcome"] == "processed"
+              and b_chain.head_root == root_of(gossip_block), f"the gossip block: {rec}")
+        rec = await gossip("c_aggregate", lambda: A.publish("beacon_aggregate_and_proof",
+                                                          aggregate))
+        check(rec["pool_verdicts"] == [True] and rec["outcome"] == "processed",
+              f"the gossip aggregate: {rec}")
+
+        # (d) the next block with one byte of its proposer signature changed
+        tampered = to_tamper.copy()
+        sig = bytearray(bytes(tampered.signature))
+        sig[P2P_TAMPERED_BYTE] ^= 1
+        tampered.signature = bytes(sig)
+        rec = await gossip("d", lambda: A.publish_block(tampered),
+                           slot=int(tampered.message.slot))
+        check(rec["pool_verdicts"] == [False] and rec["outcome"] == "error"
+              and b_chain.head_root == root_of(gossip_block),
+              f"the tampered block: {rec}, B's head {b_chain.head_root.hex()[:16]}")
+
+        # (e) both services stop, B first (its goodbye to A), then the drain
+        # loops and B's verifier, in the JAX node's `close` order
+        stack.enter_context(wrapped(B, "_request", timed_into(requests)))
+        t0 = time.perf_counter()
+        await B.stop()
+        await A.stop()
+        for node in nodes.values():
+            await node.stop()
+        await b_chain.bls.close()
+        await asyncio.sleep(0.05)
+        pending = [t for t in asyncio.all_tasks()
+                   if t is not asyncio.current_task() and not t.done()]
+        out["e"] = {"stop_s": time.perf_counter() - t0,
+                    "goodbyes": [(r[1] - r[0], len(r[2] or ())) for r in requests],
+                    "pending": [repr(t.get_coro())[:80] for t in pending], "wire": wire}
+        check(len(requests) == 1 and not pending, f"stop: {out['e']}")
+    out["heads"] = {"A": a_chain.head_root.hex(), "B": b_chain.head_root.hex()}
+    out["verdicts"] = [v["verdict"] for v in verdicts]
+    out["processor"] = {"processed": proc.processed, "errors": proc.errors}
+    return out
+
+
+def p2p_phase(dev, smi, blocked, synced):
+    """Phase 10d: `p2p_run` on phase 10c's chains. A serves the chain that
+    served 10c's range sync (mock verifier) after importing 10c's produced
+    slot-67 block; B serves 10c's synced chain (head 67) on a fresh
+    `BlsDeviceVerifierPool(mesh_mode="auto")`. The blocks of slots 68-73 are
+    built on A's head on the host. Each counted step sets the Fp launch
+    counts and graph replays to 0 just before and reads them just after; the
+    kernels' `p2p_replayed` sums the steps. Lines start `p2p:`."""
+    import asyncio
+
+    from lodestar_tpu_torch.chain.bls import BlsDeviceVerifierPool
+    from lodestar_tpu_torch.chain.bls.pool import POOL_SIZE_CLASSES
+    from lodestar_tpu_torch.models import batch_verify as bv
+    from lodestar_tpu_torch.ops import fp_cuda
+    from lodestar_tpu_torch.ssz import device_htr as dh
+
+    setup = blocked["setup"]
+    p, cfg, sks = setup["p"], setup["cfg"], setup["sks"]
+    chains = synced["chains"]
+    a_chain, b_chain, produced = chains["serving"], chains["synced"], chains["block"]
+    on_card = dev.type == "cuda"
+    cache = bv._SINGLE_LAUNCH_GRAPHS
+    captures = (cache.captures, dh.HTR_GRAPHS.captures, dh.ROOT_GRAPHS.captures)
+    out = {"steps": {}}
+    replayed_total = dict.fromkeys(fp_cuda.KERNELS, 0)
+    classes_seen = set()
+
+    def Step(name):
+        return CountedStep(dev, out["steps"], replayed_total, classes_seen, name)
+
+    async def run():
+        slot = int(produced.message.slot)
+        a_chain.on_slot(slot)
+        t0 = time.perf_counter()
+        await a_chain.process_block(produced)
+        out["a_prelude_s"] = time.perf_counter() - t0
+        if a_chain.head_root != b_chain.head_root:
+            fail("p2p: A's head after the slot-67 block is not the synced chain's")
+        t0 = time.perf_counter()
+        slots = range(slot + 1, slot + 1 + P2P_SYNC_BLOCKS + 2)
+        blocks = build_segment(a_chain.get_head_state(), sks, p, cfg, slots)
+        out["build_s"] = time.perf_counter() - t0
+        out["slots"] = [slots[0], slots[-1]]
+        last = slots[P2P_SYNC_BLOCKS - 1]
+        b_chain.bls = (BlsDeviceVerifierPool(mesh_mode="auto") if on_card
+                       else BlsDeviceVerifierPool(device=dev))
+        try:
+            return await p2p_run(p2p_modules(), a_chain, b_chain, blocks,
+                                 lambda chain: signed_aggregate(chain, sks, last, 0), step=Step)
+        except P2pCheckFailed as e:
+            fail(str(e))
+        finally:
+            await b_chain.bls.close()
+
+    t0 = time.perf_counter()
+    rec = asyncio.run(run())
+    out["wall_s"] = time.perf_counter() - t0
+    want = {"a": {}, "b": {8: P2P_SYNC_BLOCKS}, "c_block": {8: 1}, "c_aggregate": {8: 1},
+            "d": {8: 1}}
+    for name, classes in want.items() if on_card else ():
+        got = out["steps"][name]
+        if got["replays_by_class"] != classes:
+            fail(f"p2p: step {name} replayed {got['replays_by_class']}, not {classes}")
+        if any(got["fp_eager"].values()):
+            fail(f"p2p: eager kernel launches in step {name}: {got['fp_eager']}")
+        missing = [k for k in fp_cuda.KERNELS if classes and got["fp_replayed"][k] <= 0]
+        if missing:
+            fail(f"p2p: kernels never launched by step {name}: {missing}")
+    unwarmed = sorted(classes_seen - set(POOL_SIZE_CLASSES))
+    if unwarmed:
+        fail(f"p2p: replays at classes phase 7 did not warm: {unwarmed}")
+    now = (cache.captures, dh.HTR_GRAPHS.captures, dh.ROOT_GRAPHS.captures)
+    if now != captures:
+        fail(f"p2p: graphs were captured in the phase (BLS, HTR level, HTR root: "
+             f"{captures} -> {now})")
+    out.update(rec)
+    out["replays"] = {name: s["replays_by_class"] for name, s in out["steps"].items()}
+    out["replayed"] = replayed_total
+
+    a, b, st = out["a"], out["b"], out["steps"]
+    s = a["status"]
+    say(f"p2p: (a) A on {a['transport']}; B knew only A's ENR: first discv5 pass "
+        f"(PING/WHOAREYOU/handshake + FINDNODE over UDP) {a['discovery_s']:.3f} s after B's "
+        f"start, table {a['discv5_table']}; dial (TCP + multistream + noise XX + mplex) "
+        f"{a['connect_s']:.3f} s; status received {a['status_s']:.3f} s after B's start: head "
+        f"slot {s['head_slot']} root {s['head_root'][:16]}, finalized epoch "
+        f"{s['finalized_epoch']}, fork digest {s['fork_digest']}; B's mesh peers "
+        f"{a['mesh_peers']}; step replays {st['a']['replays_by_class']}")
+    say(f"p2p: (b) A imported 10c's block 67 in {out['a_prelude_s']:.2f} s; blocks "
+        f"{out['slots'][0]}-{out['slots'][1]} built on the host in {out['build_s']:.2f} s; A "
+        f"imported {P2P_SYNC_BLOCKS} (mock) in {out['a_import_s']:.2f} s; RangeSync over "
+        f"libp2p: {b['processed']} imports in {b['wall_s']:.2f} s = download "
+        f"{b['download_s']:.3f} s over {len(b['downloads'])} blocks-by-range v2 request(s) + "
+        f"processing {b['wall_s'] - b['download_s']:.2f} s; per import "
+        f"{', '.join(f'{x:.3f}' for x in b['import_s'])} s, of it the pool "
+        f"{', '.join(f'{v["s"]:.3f}' for v in b['pool'])} s; replays "
+        f"{st['b']['replays_by_class']}; B's head {b['head_root'][:16]} == A's on {smi}")
+    for name, what in (("c_block", f"block {out['slots'][0] + P2P_SYNC_BLOCKS}"),
+                       ("c_aggregate", "aggregate"), ("d", "tampered block")):
+        g = out[name]
+        say(f"p2p: ({name[0]}) {what}: sent to {g['sent_to']} peer(s), publish to verdict "
+            f"{g['publish_to_verdict_s']:.3f} s = to B's processor {g['to_processor_s']:.4f} s "
+            f"+ queue hop {g['queue_s']:.4f} s + handler {g['handler_s']:.3f} s (pool "
+            f"{g['pool_s']:.3f} s, {g['sets']} sets, replays {st[name]['replays_by_class']}); "
+            f"pool verdicts {g['pool_verdicts']}, {g['outcome']}, B's head at slot "
+            f"{g['head_slot']} on {smi}")
+    e = out["e"]
+    say(f"p2p: (e) both stopped in {e['stop_s']:.3f} s, B's goodbye answered in "
+        f"{e['goodbyes'][0][0]:.3f} s, no task left; sent over the noise channels: A "
+        f"{e['wire']['A']}, B {e['wire']['B']}; B's processor {out['processor']}; phase "
+        f"{out['wall_s']:.1f} s")
     return out
 
 
@@ -4635,6 +5090,8 @@ def main():
     chained = phase("chain", chain_phase, dev, smi, blocked)
     # 10c. range sync, backfill and gossip over the wire into the port's chain
     synced = phase("sync", sync_phase, dev, smi, blocked)
+    # 10d. discovery, range sync and gossip between two libp2p services
+    p2ped = phase("p2p", p2p_phase, dev, smi, blocked, synced)
     # 11. check against the CPU path
     phase("check", check_against_cpu, dev)
     if parent is not None:
@@ -4679,6 +5136,7 @@ def main():
             "launches_per_block_import": blocked["fp_launches_per_replay"][name],
             "chain_replayed": chained["replayed"][name],
             "sync_replayed": synced["replayed"][name],
+            "p2p_replayed": p2ped["replayed"][name],
         }
         for label, per_rows in runs.items():
             by_rows = per_rows[name]
@@ -4723,7 +5181,9 @@ def main():
     say("kzg: " + json.dumps({k: v for k, v in kzged.items() if not k.endswith("_rows")}))
     say("block: " + json.dumps({k: v for k, v in blocked.items() if k != "setup"}))
     say("chain: " + json.dumps({k: v for k, v in chained.items() if k != "replayed"}))
-    say("sync: " + json.dumps({k: v for k, v in synced.items() if k != "replayed"}))
+    say("sync: " + json.dumps({k: v for k, v in synced.items()
+                               if k not in ("replayed", "chains")}))
+    say("p2p: " + json.dumps({k: v for k, v in p2ped.items() if k != "replayed"}))
     say(f"result: {main_run['sigs_per_s']:.1f} sigs/s verify-only, "
         f"{main_run['bytes_to_verdict_sigs_per_s']:.1f} sigs/s bytes to verdict ({merged}-set "
         f"merged batch, split schedule, device prep {main_run['prep_s']:.3f} s); single launch "

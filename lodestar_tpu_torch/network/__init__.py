@@ -16,10 +16,11 @@ defines eth2 gossip SEMANTICS is here and wire-faithful:
 * `PeerScore` / `PeerManager` — reference `peers/score.ts` decay model.
 
 The port of `lodestar_tpu.network` (host Python, as there): `gossip`,
-`peers`, `reqresp_node` (the beacon req/resp handlers) and `processor`
-(the gossip work queues in front of the chain). Not ported yet: the
-transport (`transport/`, noise on `cryptography`), `gossipsub`, `discv5`
-and `discovery`, `subnets` and `service`.
+`peers`, `reqresp_node` (the beacon req/resp handlers), `processor` (the
+gossip work queues in front of the chain), the libp2p `transport` (noise
+XX, mplex and multistream on `cryptography`), `gossipsub`, `discv5`,
+`discovery`, `subnets` and `service` (`Libp2pBeaconNetwork`, which composes
+them).
 """
 
 from .gossip import (  # noqa: F401

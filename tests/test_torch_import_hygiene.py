@@ -80,8 +80,10 @@ def test_every_module_imports_without_jax():
     # archiver, validation, produce_block and chain; and the network side:
     # utils.snappy, reqresp and its encoding, protocols, rate_limiter and
     # reqresp, network and its gossip, peers, reqresp_node and processor, sync
-    # and its range_sync, backfill and unknown_block
-    assert "imported" in proc.stdout and int(proc.stdout.split()[-1]) >= 99
+    # and its range_sync, backfill and unknown_block; and the libp2p side: prover
+    # and its mpt, network.transport and its identity, multistream, noise, mplex
+    # and host, network's gossipsub, discv5, discovery, subnets and service
+    assert "imported" in proc.stdout and int(proc.stdout.split()[-1]) >= 112
 
 
 def _imported_top_levels(path):
@@ -123,7 +125,12 @@ def test_no_module_imports_jax_or_the_jax_package():
                "network/reqresp_node.py", "network/processor.py", "sync/__init__.py",
                "sync/range_sync.py", "sync/backfill.py", "sync/unknown_block.py"}
     assert len(network) == 15
-    assert serving | htr | kzg | offload | sharded | stf | chain | network <= {
+    p2p = {"prover/__init__.py", "prover/mpt.py", "network/transport/__init__.py"} | {
+        f"network/transport/{m}.py" for m in ("identity", "multistream", "noise", "mplex",
+                                              "host")} | {
+        f"network/{m}.py" for m in ("gossipsub", "discv5", "discovery", "subnets", "service")}
+    assert len(p2p) == 13
+    assert serving | htr | kzg | offload | sharded | stf | chain | network | p2p <= {
         str(f.relative_to(PORT)) for f in files if PORT in f.parents}
     bad = [
         f"{f.relative_to(REPO)}:{line} imports {name}"
