@@ -43,11 +43,10 @@ Phases, in order; any failure exits non-zero and prints no result:
             (launches x graph-replay time at each of those row counts); one
             more verify split at its three stage boundaries and one more
             prep at its stages (host bytes, then field, subgroup, hash
-            finish; wall time, kernel launches and kernel ms per stage),
-            then one verify and one stage-split prep under
-            `torch.profiler` for the card's busy time (per prep stage
-            too), its idle share of the unprofiled wall time, and the
-            device time per kernel.
+            finish; wall time, kernel launches and kernel ms per stage).
+            The split schedule is not profiled (PERF.md has its busy time
+            and profiler ms per kernel): the kernels line's
+            `profiler_ms_per_2048_*` are null.
 6. single   the single-launch path, the default on the card: compressed
             bytes in, one counted dispatch per batch, one CUDA-graph
             replay per size class (`graphs.py`). Kernel launch counts and
@@ -72,14 +71,14 @@ Phases, in order; any failure exits non-zero and prints no result:
             (`POOL_SIZE_CLASSES`, 8 through 1024; 128 is already captured
             by phase 6), each class printed with its capture and
             instantiate s, node count, pool MiB, Fp launches per replay and
-            the mean of 3 copy in + replay + verdict read; a warmed graph
+            one copy in + replay + verdict read; a warmed graph
             must launch the kernels only at row counts phase 3 checked
             (`POOL_ROWS`). Then `BlsDeviceVerifierPool(mesh_mode="auto")`
             (one lane on one GPU) serves, with kernel launch counts and
             replays reset just before and read just after, and no capture
             allowed: 16 batchable jobs of 128 at API priority (4 replays of
             class 512), the same at range-sync priority (16 of class 128),
-            512 one-set gossip-attestation jobs at once (the buffer and
+            SERVE_GOSSIP_JOBS (256) one-set gossip-attestation jobs at once (the buffer and
             16-job chunks: replays of class 16, and 8 for a short last
             chunk), 4 jobs of 128 with two swapped signatures in the second
             (one class-512 replay False, then 4 per-job class-128 replays:
@@ -220,8 +219,7 @@ Phases, in order; any failure exits non-zero and prints no result:
             the secret keys (`reference_sets`, no pubkey decoded); a block
             with two attestations' signatures swapped verifies False;
             a block with one byte of its state root changed is reported as
-            a root mismatch; one more import of the block under the
-            profiler gives the card's busy ms and idle share. Prints the
+            a root mismatch. Prints the
             set-up s, process_slots s (host prepare + flush, HTR replays by
             pair class), set-building s and its pubkey-aggregation share,
             the verify's wall s, replay class and Fp launches per replay,
@@ -270,9 +268,8 @@ Phases, in order; any failure exits non-zero and prints no result:
             persisted; (d) a produced slot-67 block, the slot-66 aggregates
             and an attestation pushed by topic into `NetworkProcessor` and
             drained with `execute_work` (validation s, pool s, replay class
-            and verdict per object; processed 4, errors 0, the head at 67);
-            (e) block 66 imported under the profiler (busy ms, idle share of
-            the median import). No graph captured. Lines start `sync:`.
+            and verdict per object; processed 4, errors 0, the head at 67).
+            No graph captured. Lines start `sync:`.
 10d. p2p    two `Libp2pBeaconNetwork` services on 127.0.0.1 over phase 10c's
             chains (`p2p_run`), counts and replays set to 0 just before each
             step and read just after. A serves 10c's serving chain (mock
@@ -296,6 +293,26 @@ Phases, in order; any failure exits non-zero and prints no result:
             streams each side sent. No graph captured, no eager launch, no
             in-memory stand-in: a refused loopback socket fails the phase.
             Lines start `p2p:`.
+10e. lightclient  a light client on phase 10d's synced chain (`lc_run`),
+            counts and replays set to 0 just before each step and read just
+            after, on a fresh `BlsDeviceVerifierPool(mesh_mode="auto")` and
+            with a `LightClientServer` attached: (a) blocks 73-76 built on
+            the host with full sync aggregates (all 512 bits; one signature
+            by the sum mod r of the members' keys, checked once on the host
+            oracle's `eth_fast_aggregate_verify`), each imported through
+            `BeaconChain.process_block` as 3 sets (proposer, randao, the
+            512-pubkey sync-committee set) in one class-8 replay, split into
+            set-building s, pool s and the server's `on_imported_block` s;
+            the last under the profiler (the card's busy ms, idle share);
+            (b) block 77, its aggregate signed over another root, rejected
+            INVALID_SIGNATURES after one class-8 replay, head and the
+            server's updates unchanged; (c) a `Lightclient` (fork version:
+            Capella's) over req/resp on 127.0.0.1 (`LightClientWire`):
+            bootstrap from block 73, `sync_to_head` (period 0's update),
+            `poll_head` (the optimistic update: its header at slot 75, the
+            finalized header still 73's), an update with one signature byte
+            changed refused; bootstrap s, each validation's s, bytes on the
+            wire; no replay. No graph captured. Lines start `lightclient:`.
 11. check   a Miller loop + final exponentiation of two pairs on the card
             equals the CPU path (the plain versions) limb for limb, and
             equals e(P, Q) from the host pairing check on canonical values.
@@ -377,7 +394,9 @@ N_KERNEL_CHECK = tuple(sorted({*N_TIMED, *PREP_ROWS, *MANY_ROWS, *POOL_ROWS, *KZ
 N_COMPARE = 110646
 BATCH = 128  # sets per gossip job
 MERGE_JOBS = 16  # jobs merged into one RLC batch
-TIMED_RUNS = 2  # timed runs after the warm-up in phases 4, 6 and 7d
+TIMED_RUNS = 1  # timed runs after the warm-up in phases 4, 6 and 7d
+SERVE_CLASS_REPLAYS = 1  # phase 7's timed replays of each warmed class
+SERVE_GOSSIP_JOBS = 256  # phase 7's one-set gossip jobs
 
 # H100 SXM peaks for the bound (NVIDIA's data sheet and the Hopper
 # architecture white paper): 3.35 TB/s of HBM; int32 multiply-adds at
@@ -394,14 +413,6 @@ REPLACES = {
     "mont_mul": "lodestar_tpu/ops/fp_pallas.py:199",
 }
 SOURCE = "lodestar_tpu_torch/ops/csrc/fp_kernels.cu"
-# Each kernel's function name as a profiler trace shows it (demangled).
-SYMBOL = {
-    "mul_acc": "mul_acc_kernel(",
-    "sq_acc": "sq_acc_kernel<",  # every <PATH, W> instantiation
-    "redc": "redc_kernel<",  # every <PATH, W> instantiation
-    "mont_mul": "mont_mul_kernel<",
-    "mont_sq": "mont_sq_kernel<",
-}
 
 
 def fail(msg):
@@ -884,16 +895,11 @@ def verify_by_stage(pk, h, sig, bits, mask):
     return bool(ok), stages
 
 
-STAGE_MARK = "prep stage: "  # the record_function name of a prep stage
-
-
 class TraceEvent:
     """One event of a profiler trace: its name, whether it ran on the card,
-    its start and end in microseconds from the trace's start, its host
-    thread, and for a host event whether it is top-level (no enclosing
-    host event on its thread but a prep stage's window)."""
+    and its start and end in microseconds from the trace's start."""
 
-    __slots__ = ("name", "cuda", "start", "end", "thread", "top")
+    __slots__ = ("name", "cuda", "start", "end")
 
 
 def trace_events(prof):
@@ -909,23 +915,16 @@ def trace_events(prof):
     events = []
     for k in results.events():
         e = TraceEvent()
-        e.name, e.cuda, e.thread, e.top = k.name(), k.device_type() == cuda, k.start_thread_id(), False
+        e.name, e.cuda = k.name(), k.device_type() == cuda
         e.start = (k.start_ns() - origin) / 1e3
         e.end = e.start + k.duration_ns() / 1e3
         events.append(e)
-    stack = []  # the enclosing host events of the current one
-    for e in sorted((e for e in events if not e.cuda), key=lambda e: (e.thread, e.start, -e.end)):
-        while stack and (stack[-1].thread != e.thread or stack[-1].end <= e.start):
-            stack.pop()
-        e.top = not stack or stack[-1].name.startswith(STAGE_MARK)
-        stack.append(e)
     return events
 
 
 def device_events(events):
-    """The trace's device work: its CUDA events but the GPU-side copies of
-    the prep stages' `record_function` ranges, which span whole stages."""
-    return [e for e in events if e.cuda and not e.name.startswith(STAGE_MARK)]
+    """The trace's device work: its CUDA events."""
+    return [e for e in events if e.cuda]
 
 
 def busy_ms(events, lo=float("-inf"), hi=float("inf")):
@@ -987,9 +986,8 @@ def prep_by_stage(merged_sets, dev):
         before = rows_snapshot()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with torch.profiler.record_function(STAGE_MARK + name):  # a profiler window
-            res = fn(*args)
-            torch.cuda.synchronize()
+        res = fn(*args)
+        torch.cuda.synchronize()
         stages[name] = (time.perf_counter() - t0, rows_since(before))
         return res
 
@@ -1022,49 +1020,10 @@ def profiled(run):
     return res, wall_ms, trace_events(prof)
 
 
-def report_profile(label, events, prof_wall_ms, wall_ms, per_ms, smi):
-    """Print the card's busy time and idle share of the unprofiled wall
-    (`wall_ms`; the profiler slows the host, not the card), the top device
-    kernels, and each Fp kernel's profiler ms beside launches x graph time
-    (`per_ms`). Returns {kernel: profiler ms}, or None values when the
-    trace holds no device events."""
-    host_ops = sum(1 for e in events if not e.cuda and e.top and e.name.startswith("aten::"))
-    say(f"profile: profiled {label} {prof_wall_ms:.1f} ms wall (profiler on), "
-        f"{host_ops} top-level aten calls")
-    busy = busy_ms(events)
-    if busy == 0:
-        say(f"profile: {label} device busy time: not measured (the trace holds no device events)")
-        for name, ms in per_ms.items():
-            say(f"profile: {name} kernel ms per {label} {ms:.2f} (graph replay x launches); "
-                "profiler: not measured")
-        return dict.fromkeys(per_ms)
-    say(f"profile: {label} device busy {busy:.1f} ms; idle {100 * (1 - busy / wall_ms):.1f}% of "
-        f"the unprofiled {wall_ms:.1f} ms ({100 * (1 - busy / prof_wall_ms):.1f}% of the "
-        f"profiled wall) on {smi}")
-    by_kernel = {}
-    for e in device_events(events):
-        k = by_kernel.setdefault(e.name, [0, 0.0])
-        k[0] += 1
-        k[1] += (e.end - e.start) / 1e3
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])
-    for name, (count, ms) in top[:8]:
-        say(f"profile: {label} kernel {ms:9.2f} ms {count:7d}x  {name[:90]}")
-    prof_ms = {}
-    for name, symbol in SYMBOL.items():
-        hits = [(c, ms) for n, (c, ms) in by_kernel.items() if symbol in n]
-        prof_ms[name] = sum(ms for _, ms in hits)
-        say(f"profile: fp kernel {name}: {per_ms[name]:.2f} ms per {label} from graph "
-            f"replay x launches; profiler {prof_ms[name]:.2f} ms over "
-            f"{sum(c for c, _ in hits)} launches")
-    say(f"profile: fp kernels {sum(prof_ms.values()):.2f} ms of {busy:.1f} ms busy per {label} "
-        f"(graph replay x launches: {sum(per_ms.values()):.2f} ms)")
-    return prof_ms
-
-
 def profile_main(main, smi):
-    """Phase 5: one merged verify and one 2048-set prep, each by stage and
-    under the profiler. Returns ({kernel: ms}, {kernel: profiler ms}) per
-    verify and per prep."""
+    """Phase 5: one merged verify and one 2048-set prep, each by stage.
+    Returns ({kernel: ms}, {kernel: None}: the profiler's ms, not measured)
+    per verify and per prep."""
     from lodestar_tpu_torch.models import batch_verify as bv
 
     pk, h, sig, mask, fresh_bits = main["merged_inputs"]
@@ -1085,12 +1044,6 @@ def profile_main(main, smi):
     say(f"profile: stage-split {merged}-set verify {wall:.3f} s on {smi}")
     for name, (t, n) in stages.items():
         say(f"profile: verify stage {name}: {t:.3f} s ({100 * t / wall:.1f}%), {n} kernel launches")
-    bits = fresh_bits()
-    ok, prof_wall, events = profiled(lambda: bool(bv.device_batch_verify(pk, h, sig, bits, mask)))
-    if not ok:
-        fail("the profiled merged batch did not verify")
-    verify_prof = report_profile("verify", events, prof_wall, wall * 1e3, out["verify"], smi)
-
     ok, stages = prep_by_stage(main["merged_sets"], mask.device)
     if not ok:
         fail("the stage-split prep rejected the merged sets")
@@ -1101,35 +1054,10 @@ def profile_main(main, smi):
         say(f"profile: prep stage {name}: {t:.3f} s ({100 * t / wall:.1f}%), {n} kernel launches, "
             f"{sum(kernel_ms(by_kernel, times).values()):.2f} kernel ms (graph replay x "
             f"launches) {json.dumps({k: v for k, v in by_kernel.items() if v})}")
-    (ok, _), prof_wall, events = profiled(lambda: prep_by_stage(main["merged_sets"], mask.device))
-    if not ok:
-        fail("the profiled prep rejected the merged sets")
-    prep_prof = report_profile("prep", events, prof_wall, wall * 1e3, out["prep"], smi)
-    prep_stage_busy(events, stages, smi)
-    return out, {"verify": verify_prof, "prep": prep_prof}
-
-
-def prep_stage_busy(events, stages, smi):
-    """The card's busy time in each stage of the profiled prep (its
-    `record_function` window, which ends after a synchronize) and its idle
-    share of the same stage's unprofiled wall time. Not measured when the
-    stages' busy times do not add up to the whole trace's (the windows and
-    the device events would then not share one clock)."""
-    windows = {e.name[len(STAGE_MARK):]: (e.start, e.end)
-               for e in events if not e.cuda and e.name.startswith(STAGE_MARK)}
-    busy = {name: busy_ms(events, *windows[name]) for name in stages if name in windows}
-    total = busy_ms(events)
-    if len(busy) != len(stages) or abs(sum(busy.values()) - total) > 0.05 * total:
-        say(f"profile: prep device busy by stage: not measured (stage windows hold "
-            f"{sum(busy.values()):.1f} of {total:.1f} ms)")
-        return
-    for name, (t, _) in stages.items():
-        say(f"profile: prep stage {name}: device busy {busy[name]:.1f} ms, idle "
-            f"{100 * (1 - busy[name] / (t * 1e3)):.1f}% of its unprofiled {t * 1e3:.1f} ms "
-            f"on {smi}")
-
-
-# --- phase 6 -----------------------------------------------------------------
+    # the split schedule is not profiled: a profiled verify and prep cost
+    # ~1 min of the script's time limit on a slow host (PERF.md has their
+    # busy ms and profiler ms per kernel)
+    return out, {label: dict.fromkeys(per_rows) for label, per_rows in runs.items()}
 
 
 def single_launch(dev, smi, main):
@@ -1353,7 +1281,7 @@ def serve(dev, smi, main):
                  f"not check: {unchecked}")
         si = bv.prepare_single_launch_inputs(merged_sets[:size])
         times = []
-        for _ in range(3):
+        for _ in range(SERVE_CLASS_REPLAYS):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             verdict, batch_valid = cache(dev, *si.arrays, si.bits, si.mask)
@@ -1366,7 +1294,7 @@ def serve(dev, smi, main):
         say(f"serve: class {size}: capture {g.capture_s:.2f} s, instantiate "
             f"{g.instantiate_s:.2f} s, {g.nodes} nodes, pool {g.pool_bytes / 2**20:.1f} MiB, Fp "
             f"launches per replay {sum(g.launches.values())} {g.launches}; copy in + replay + "
-            f"verdict read x3: {', '.join(f'{t:.3f}' for t in times)} s (mean "
+            f"verdict read x{SERVE_CLASS_REPLAYS}: {', '.join(f'{t:.3f}' for t in times)} s (mean "
             f"{per_class[size]['replay_s']:.3f} s, {size / per_class[size]['replay_s']:.1f} "
             f"sigs/s) on {smi}")
 
@@ -1395,8 +1323,8 @@ def serve(dev, smi, main):
             ("api_16x128", jobs16, PriorityClass.API, True, [True] * MERGE_JOBS, {512: 4}),
             ("rangesync_16x128", jobs16, PriorityClass.RANGE_SYNC, True, [True] * MERGE_JOBS,
              {128: MERGE_JOBS}),
-            ("gossip_512x1", [[s] for s in merged_sets[:512]], PriorityClass.GOSSIP_ATTESTATION,
-             True, [True] * 512, None),
+            (f"gossip_{SERVE_GOSSIP_JOBS}x1", [[s] for s in merged_sets[:SERVE_GOSSIP_JOBS]],
+             PriorityClass.GOSSIP_ATTESTATION, True, [True] * SERVE_GOSSIP_JOBS, None),
             ("tampered", tampered, PriorityClass.API, True, [True, False, True, True],
              {512: 1, 128: 4}),
             ("wrong_length", [wrong_length], PriorityClass.API, False, [False], {}),
@@ -2145,7 +2073,7 @@ def offload_client(dev, smi, main, served, offloaded):
 # devices are every visible GPU when there are more than one, else cuda:0
 # twice: two shards on one GPU replay one after the other, so on one GPU the
 # phase shows the road is right and what it costs, not a speed-up.
-SHARD_POOL_JOBS = 8  # (e) range-sync jobs of BATCH sets, each sharded over two lanes
+SHARD_POOL_JOBS = 4  # (e) range-sync jobs of BATCH sets, each sharded over two lanes
 
 
 def replay_ms(g, reps=3):
@@ -2388,10 +2316,10 @@ def sharded(dev, smi, main, single):
 # is one CUDA-graph replay of plain PyTorch word ops per pow-2 pair class.
 
 HTR_TREE_DEPTH = 20  # (a) merkle_root_device on 2^20 chunks
-HTR_TREE_TIMED = 5
+HTR_TREE_TIMED = 2
 HTR_STACK_DEPTH = 18  # (b) the collector: a 2^18-chunk stack ...
 HTR_DIRTY = 4096  # ... and 4096 dirty chunks per flush
-HTR_FLUSHES = 5
+HTR_FLUSHES = 2
 HTR_VALIDATORS = 1 << 20  # (c) a mainnet Capella BeaconState
 HTR_ROUNDS = 1  # epoch-boundary rounds, and as many slot-shaped rounds
 # The least int32 operations one pair hash needs (a 64-byte message, two
@@ -2774,7 +2702,7 @@ def htr(dev, smi):
 # The commitment's 4,096-point G1 MSM and every pairing-product check are one
 # CUDA-graph replay each (classes 4,096 and 2), on the five Fp kernels.
 
-KZG_TIMED = 3  # timed commitments after the warm-up
+KZG_TIMED = 2  # timed commitments after the warm-up
 KZG_SEED = 4844
 
 
@@ -3149,14 +3077,16 @@ def build_block(genesis, sks, p, cfg, slot, attest_from=1):
     return signed, work, ctx
 
 
-def unsigned_block(work, ctx, sks, p, slot, attest_from):
+def unsigned_block(work, ctx, sks, p, slot, attest_from, sync=None):
     """The Capella block at `slot` on `work` (dialed to `slot`), its state
     root left zero: its proposer, parent, a randao reveal, the eth1 data, one
     attestation of every committee of slots attest_from..slot-1 (every
     member attesting; its signature is one signature by the sum of the
     committee's secret keys mod r, equal in bytes to the aggregate of the
     members' signatures) and an empty sync aggregate (no participant, the
-    G2 infinity signature). Slots before `attest_from` get no attestation."""
+    G2 infinity signature), or with `sync` "full" or a 32-byte root the
+    full one of `full_sync_aggregate`. Slots before `attest_from` get no
+    attestation."""
     from lodestar_tpu_torch import params, ssz
     from lodestar_tpu_torch.crypto.bls import api as bls
     from lodestar_tpu_torch.crypto.bls.fields import R
@@ -3201,16 +3131,50 @@ def unsigned_block(work, ctx, sks, p, slot, attest_from):
             att.signature = bls.sign(summed, root)
             atts.append(att)
     block.body.attestations = atts
-    block.body.sync_aggregate.sync_committee_bits = [False] * p.SYNC_COMMITTEE_SIZE
-    block.body.sync_aggregate.sync_committee_signature = bls.G2_INFINITY
+    if sync is None:
+        block.body.sync_aggregate.sync_committee_bits = [False] * p.SYNC_COMMITTEE_SIZE
+        block.body.sync_aggregate.sync_committee_signature = bls.G2_INFINITY
+    else:
+        block.body.sync_aggregate = full_sync_aggregate(
+            work, ctx, sks, p, root=None if sync == "full" else sync)
     return block
 
 
-def build_segment(anchor, sks, p, cfg, slots):
+def full_sync_aggregate(work, ctx, sks, p, root=None):
+    """The sync aggregate of `work`'s whole current sync committee (every
+    bit set) over the previous slot's block root under DOMAIN_SYNC_COMMITTEE
+    at that slot's epoch, or over `root` (a forgery that still decodes): one
+    signature by the sum mod r of the members' secret keys, each counted as
+    often as it sits in the committee, equal in bytes to the aggregate of
+    the members' signatures."""
+    import hashlib
+
+    from lodestar_tpu_torch import params
+    from lodestar_tpu_torch.crypto.bls import api as bls
+    from lodestar_tpu_torch.crypto.bls.fields import R
+    from lodestar_tpu_torch.state_transition.util import get_block_root_at_slot, get_domain
+    from lodestar_tpu_torch.types import ssz_types
+
+    previous = max(int(work.slot), 1) - 1
+    if root is None:
+        root = get_block_root_at_slot(work, previous, p)
+    domain = get_domain(work, params.DOMAIN_SYNC_COMMITTEE, previous // p.SLOTS_PER_EPOCH)
+    index = ctx.pubkey_to_index(work)
+    members = [index[bytes(pk)] for pk in work.current_sync_committee.pubkeys]
+    summed = bls.SecretKey(sum(sks[i].scalar for i in members) % R)
+    agg = ssz_types(p).SyncAggregate.default()
+    agg.sync_committee_bits = [True] * p.SYNC_COMMITTEE_SIZE
+    agg.sync_committee_signature = bls.sign(summed, hashlib.sha256(root + domain).digest())
+    return agg
+
+
+def build_segment(anchor, sks, p, cfg, slots, sync=None):
     """Consecutive signed blocks at `slots` on `anchor` (not mutated), each as
     `build_block` makes it with no attestation, chained on the previous
     block's post-state: one state dialed, built on and rooted in place, every
-    hash on the host through its warm tracker. Returns the signed blocks."""
+    hash on the host through its warm tracker. `sync` maps a slot to the
+    `unsigned_block` sync argument of its block ("full", or a forged root;
+    none: empty aggregates). Returns the signed blocks."""
     from lodestar_tpu_torch.state_transition import (
         EpochContext,
         process_block,
@@ -3223,7 +3187,8 @@ def build_segment(anchor, sks, p, cfg, slots):
         state = anchor.copy()
         for slot in slots:
             ctx = process_slots(state, slot, p, cfg)
-            block = unsigned_block(state, ctx, sks, p, slot, attest_from=slot)
+            block = unsigned_block(state, ctx, sks, p, slot, attest_from=slot,
+                                   sync=(sync or {}).get(slot))
             process_block(state, block, EpochContext(state, p), verify_signatures=False, cfg=cfg)
             block.state_root = state_hash_tree_root(state)
             # the block leaves the state's slot and fork, so its proposer domain, as they were
@@ -3568,24 +3533,6 @@ def block_import(dev, smi, p=None, n=BLOCK_VALIDATORS, slot=BLOCK_SLOT, attest_f
     say(f"block: two attestations' signatures swapped: verdict False ({res_s['verify_s']:.3f} s); "
         f"one byte of the state root changed: verdict True, reported as a state root mismatch")
 
-    def again(pool, executor):
-        return import_block(pool, executor, genesis, signed, p, cfg, sets=sets)
-
-    (res_p, _, _), prof_wall_ms, events = profiled(lambda: on_pool(dev, again))
-    busy = busy_ms(events)
-    wall_ms = 1e3 * res["wall_s"]
-    out["busy_ms"], out["prof_wall_ms"] = busy, prof_wall_ms
-    out["device_events"] = len(device_events(events))
-    out["idle"] = 1 - busy / wall_ms if busy else None
-    if res_p["verdict"] is not True or res_p["error"] is not None:
-        fail("block: the profiled import did not verify and root as the first")
-    if busy == 0:
-        say("block: profiled import: device busy time not measured (no device events)")
-    else:
-        say(f"block: profiled import (sets given): device busy {busy:.1f} ms over "
-            f"{out['device_events']} device events; idle {100 * out['idle']:.1f}% of the "
-            f"unprofiled import's {wall_ms:.1f} ms ({100 * (1 - busy / prof_wall_ms):.1f}% of the "
-            f"profiled {prof_wall_ms:.1f} ms, set-building left out) on {smi}")
     now = (cache.captures, dh.HTR_GRAPHS.captures, dh.ROOT_GRAPHS.captures)
     if now != captures:
         fail(f"block: graphs were captured in the phase (BLS, HTR level, HTR root: "
@@ -3822,8 +3769,8 @@ def chain_phase(dev, smi, blocked):
         # and checked against the secret keys' sets), so (a) times the
         # chain's import around them
         def known_sets(real):
-            def run(state, block, ctx):
-                return list(setup["sets"]) if block is signed else real(state, block, ctx)
+            def run(state, block, ctx, **kw):
+                return list(setup["sets"]) if block is signed else real(state, block, ctx, **kw)
             return run
 
         with wrapped(chain_mod, "get_block_signature_sets", known_sets), \
@@ -4434,27 +4381,6 @@ def sync_phase(dev, smi, blocked, count=SYNC_SLOTS):
 
     asyncio.run(run())
 
-    # (e) one import of the segment's last block under the profiler, on a
-    # fresh chain anchored at the server's state of the slot before
-    t_e = time.perf_counter()
-    chain = new_chain(prof["anchor"], None, last)
-
-    async def again():
-        chain.bls = make_pool()
-        try:
-            return await chain.process_block(blocks[-1], priority=PriorityClass.RANGE_SYNC)
-        finally:
-            await chain.bls.close()
-
-    got, prof_wall_ms, events = profiled(lambda: asyncio.run(again()))
-    if got != roots[-1]:
-        fail("sync: (e) the profiled import returned another root")
-    busy = busy_ms(events)
-    median_ms = 1e3 * out["range"]["import_s"]["median"]
-    out.update(busy_ms=busy, prof_wall_ms=prof_wall_ms, device_events=len(device_events(events)),
-               idle=(1 - busy / median_ms) if busy else None,
-               profile_s=time.perf_counter() - t_e)
-
     unwarmed = sorted(classes_seen - set(POOL_SIZE_CLASSES))
     if unwarmed:
         fail(f"sync: replays at classes phase 7 did not warm: {unwarmed}")
@@ -4496,13 +4422,6 @@ def sync_phase(dev, smi, blocked, count=SYNC_SLOTS):
     say(f"sync: (d) NetworkProcessor drained {gs['drained']} objects in {st['d']['wall_s']:.2f} s "
         f"(built in {out['gossip_build_s']:.2f} s): processed {gs['processed']}, errors "
         f"{gs['errors']}, head at slot {gs['head_slot']}")
-    if busy == 0:
-        say("sync: (e) profiled import: device busy time not measured (no device events)")
-    else:
-        say(f"sync: (e) profiled import of block {last}: device busy {busy:.1f} ms over "
-            f"{out['device_events']} device events; idle {100 * out['idle']:.1f}% of (b)'s "
-            f"median import {median_ms:.1f} ms ({100 * (1 - busy / prof_wall_ms):.1f}% of the "
-            f"profiled {prof_wall_ms:.1f} ms; the step {out['profile_s']:.1f} s) on {smi}")
     return out
 
 
@@ -4935,6 +4854,410 @@ def p2p_phase(dev, smi, blocked, synced):
     return out
 
 
+# --- phase 10e ---------------------------------------------------------------
+# The light client on phase 10d's synced chain: blocks with full sync
+# aggregates imported through `BeaconChain` (the 512-pubkey sync-committee set
+# beside the proposer's and the randao reveal's, in one class-8 replay), the
+# chain's `LightClientServer` producing updates from them, and a `Lightclient`
+# following the head over req/resp on TCP.
+
+LC_BLOCKS = 4  # consecutive Capella blocks with full sync aggregates on 10d's head
+LC_FORGED_ROOT = b"\x5a" * 32  # the root the fifth block's sync aggregate is signed over
+LC_TAMPERED_BYTE = 40  # the byte of the optimistic update's signature changed
+LC_BOOTSTRAP = "/eth2/beacon_chain/req/light_client_bootstrap/1/ssz_snappy"
+LC_UPDATES = "/eth2/beacon_chain/req/light_client_updates_by_range/1/ssz_snappy"
+LC_FINALITY = "/eth2/beacon_chain/req/light_client_finality_update/1/ssz_snappy"
+LC_OPTIMISTIC = "/eth2/beacon_chain/req/light_client_optimistic_update/1/ssz_snappy"
+
+
+class CountingStream:
+    """A req/resp stream half that adds the bytes it reads or writes to
+    `counts[key]`."""
+
+    def __init__(self, inner, counts, key):
+        self._inner, self._counts, self._key = inner, counts, key
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+    def _add(self, data):
+        self._counts[self._key] = self._counts.get(self._key, 0) + len(data)
+        return data
+
+    def write(self, data):
+        self._inner.write(self._add(data))
+
+    async def read(self, n=-1):
+        return self._add(await self._inner.read(n))
+
+    async def readexactly(self, n):
+        return self._add(await self._inner.readexactly(n))
+
+
+class LightClientWire:
+    """The `Lightclient`'s transport (the REST shape of its docstring) over
+    req/resp: each of the four light-client requests goes to a
+    `ReqRespBeaconNode` through `dial` on `loop` (the client runs on another
+    thread), and comes back as `{"data": to_json(...)}`; a finality or
+    optimistic request answered with an error raises, as a 404 does. Bytes
+    read and written per request are counted in `wire`."""
+
+    def __init__(self, loop, dial, types):
+        from lodestar_tpu_torch.reqresp import ReqResp
+
+        self.loop, self._dial, self.t = loop, dial, types
+        self.client = ReqResp()
+        self.wire = []  # (protocol, bytes written, bytes read, wall s)
+
+    def _request(self, protocol, request):
+        counts = {}
+
+        async def dial():
+            reader, writer = await self._dial()
+            return CountingStream(reader, counts, "read"), CountingStream(writer, counts, "written")
+
+        async def go():
+            t0 = time.perf_counter()
+            try:
+                return await self.client.send_request(dial, protocol, request)
+            finally:
+                self.wire.append((protocol.split("/")[4], counts.get("written", 0),
+                                  counts.get("read", 0), time.perf_counter() - t0))
+
+        import asyncio
+
+        return asyncio.run_coroutine_threadsafe(go(), self.loop).result(60)
+
+    def get_lc_bootstrap(self, block_root_hex):
+        from lodestar_tpu_torch.ssz.json import to_json
+
+        (boot,) = self._request(LC_BOOTSTRAP, bytes.fromhex(block_root_hex[2:]))
+        return {"data": to_json(self.t.LightClientBootstrap, boot)}
+
+    def get_lc_updates(self, start_period, count):
+        from lodestar_tpu_torch.ssz.json import to_json
+
+        req = self.t.LightClientUpdatesByRange.default()
+        req.start_period, req.count = start_period, count
+        return {"data": [{"data": to_json(self.t.LightClientUpdate, u)}
+                         for u in self._request(LC_UPDATES, req)]}
+
+    def get_lc_finality_update(self):
+        from lodestar_tpu_torch.ssz.json import to_json
+
+        (u,) = self._request(LC_FINALITY, None)
+        return {"version": "capella", "data": to_json(self.t.LightClientFinalityUpdate, u)}
+
+    def get_lc_optimistic_update(self):
+        from lodestar_tpu_torch.ssz.json import to_json
+
+        (u,) = self._request(LC_OPTIMISTIC, None)
+        return {"version": "capella", "data": to_json(self.t.LightClientOptimisticUpdate, u)}
+
+
+async def lc_run(chain, blocks, forged, p, cfg, step=None, profile=None):
+    """Phase 10e's scenario on `chain` (its verifier set by the caller, its
+    head the parent of `blocks[0]`): a `LightClientServer` attached, (a) each
+    of `blocks` (full sync aggregates) imported through `process_block`,
+    (b) `forged` (its aggregate signed over another root) rejected
+    INVALID_SIGNATURES with the head and the server's updates unchanged,
+    (c) a `Lightclient` over req/resp bootstrapping from blocks[0]'s root,
+    `sync_to_head`, `poll_head`, and a forged update refused. `step(name)` is
+    a context manager around each counted step (CountedStep), or None; the
+    import of step `profile` ("a1".."a4", or None) runs under
+    `torch.profiler` (its device busy ms and events are kept). Returns what
+    each step gave; a check that fails raises P2pCheckFailed."""
+    import asyncio
+    import contextlib
+    import hashlib
+
+    from lodestar_tpu_torch import light_client as lc_mod
+    from lodestar_tpu_torch import params
+    from lodestar_tpu_torch.chain import chain as chain_mod
+    from lodestar_tpu_torch.chain.chain import BlockError, BlockErrorCode
+    from lodestar_tpu_torch.chain.light_client_server import LightClientServer
+    from lodestar_tpu_torch.crypto.bls import api as bls
+    from lodestar_tpu_torch.light_client import LightClientError
+    from lodestar_tpu_torch.light_client.client import Lightclient, RunStatusCode
+    from lodestar_tpu_torch.network.reqresp_node import ReqRespBeaconNode
+    from lodestar_tpu_torch.ssz.json import from_json
+    from lodestar_tpu_torch.state_transition.util import get_domain
+    from lodestar_tpu_torch.types import ssz_types
+
+    def check(ok, msg):
+        if not ok:
+            raise P2pCheckFailed(f"lightclient: {msg}")
+
+    step = step or (lambda name: contextlib.nullcontext())
+    t = ssz_types(p)
+    server = LightClientServer(chain)
+    chain.light_client_server = server
+    out = {"imports": []}
+
+    def root_of(signed):
+        return signed.message.type.hash_tree_root(signed.message)
+
+    # the first aggregate on the host oracle, once: the 512 members' pubkeys
+    # over the parent's root, as process_sync_aggregate checks it
+    head_state = chain.get_head_state()
+    first = blocks[0].message
+    agg = first.body.sync_aggregate
+    domain = get_domain(head_state, params.DOMAIN_SYNC_COMMITTEE,
+                        (int(first.slot) - 1) // p.SLOTS_PER_EPOCH)
+    t0 = time.perf_counter()
+    oracle = bls.eth_fast_aggregate_verify(
+        [bytes(k) for k in head_state.current_sync_committee.pubkeys],
+        hashlib.sha256(bytes(first.parent_root) + domain).digest(),
+        bytes(agg.sync_committee_signature))
+    out["oracle_s"] = time.perf_counter() - t0
+    check(oracle, "the host oracle refuses the first block's sync aggregate")
+    check(all(agg.sync_committee_bits), "the first block's aggregate is not full")
+
+    def timed_list(obj, name, into):
+        def make(real):
+            def run(*args, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return real(*args, **kwargs)
+                finally:
+                    into.append(time.perf_counter() - t0)
+            return run
+        return wrapped(obj, name, make)
+
+    def profiler(name):
+        if name != profile:
+            return contextlib.nullcontext()
+        import torch
+
+        return torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                  torch.profiler.ProfilerActivity.CUDA])
+
+    async def one_import(signed, name):
+        sets_s, server_s, pool = [], [], []
+        verify = chain.bls.verify_signature_sets
+
+        async def timed_verify(sets, opts=None):
+            t0 = time.perf_counter()
+            try:
+                return await verify(sets, opts)
+            finally:
+                pool.append({"s": time.perf_counter() - t0, "sets": len(sets),
+                             "pubkeys": [len(s.pubkey) for s in sets]})
+
+        chain.on_slot(int(signed.message.slot))
+        rec = {"slot": int(signed.message.slot)}
+        with timed_list(chain_mod, "get_block_signature_sets", sets_s), \
+                timed_list(server, "on_imported_block", server_s), \
+                wrapped(chain.bls, "verify_signature_sets", lambda real: timed_verify), \
+                step(name), profiler(name) as prof:
+            t0 = time.perf_counter()
+            try:
+                await chain.process_block(signed)
+                rec["verdict"] = "imported"
+            except BlockError as e:
+                rec["verdict"] = e.code
+            rec["import_s"] = time.perf_counter() - t0
+        if prof is not None:
+            events = trace_events(prof)
+            rec.update(profiled=True, busy_ms=busy_ms(events),
+                       device_events=len(device_events(events)))
+        rec.update(sets_s=sum(sets_s), server_s=sum(server_s),
+                   pool_s=sum(v["s"] for v in pool), sets=[v["sets"] for v in pool])
+        return rec
+
+    # (a) the blocks with full sync aggregates
+    for i, signed in enumerate(blocks):
+        rec = await one_import(signed, f"a{i + 1}")
+        out["imports"].append(rec)
+        check(rec["verdict"] == "imported", f"block {rec['slot']}: {rec['verdict']}")
+        check(chain.head_root == root_of(signed), f"block {rec['slot']} is not the head")
+        check(rec["sets"] == [3], f"block {rec['slot']} sent {rec['sets']} sets, not [3]")
+    check(len(server.get_updates(0, 1)) == 1 and server.get_optimistic_update() is not None,
+          "the server produced no update")
+    best, optimistic = server.get_updates(0, 1)[0], server.get_optimistic_update()
+    check(int(best.signature_slot) == int(first.slot),
+          "period 0's best update is not the first block's (the oldest attested header)")
+
+    # (b) the forged aggregate: a valid point over another root
+    head = chain.head_root
+    rec = await one_import(forged, "b")
+    out["forged"] = rec
+    check(rec["verdict"] == BlockErrorCode.INVALID_SIGNATURES,
+          f"the forged aggregate gave {rec['verdict']}, not INVALID_SIGNATURES")
+    check(chain.head_root == head, "the head moved on the forged block")
+    check(server.get_optimistic_update() is optimistic and server.get_updates(0, 1)[0] is best,
+          "the server produced an update from the forged block")
+
+    # (c) a light client over req/resp
+    node = ReqRespBeaconNode(chain)
+    dial, transport, close = await open_wire(node, "lightclient")
+    loop = asyncio.get_running_loop()
+    wire = LightClientWire(loop, dial, t)
+    gvr = bytes(head_state.genesis_validators_root)
+    client = Lightclient(transport=wire, genesis_validators_root=gvr,
+                         fork_version=bytes(cfg.CAPELLA_FORK_VERSION), p=p)
+    validate_s = []
+    c = {"transport": transport}
+    try:
+        with timed_list(lc_mod, "validate_light_client_update", validate_s), step("c"):
+            t0 = time.perf_counter()
+            await loop.run_in_executor(None, client.bootstrap, root_of(blocks[0]))
+            c["bootstrap_s"] = time.perf_counter() - t0
+            check(client.status == RunStatusCode.SYNCING, f"status {client.status} after bootstrap")
+            t0 = time.perf_counter()
+            c["applied"] = await loop.run_in_executor(None, client.sync_to_head)
+            c["sync_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            await loop.run_in_executor(None, client.poll_head)
+            c["poll_s"] = time.perf_counter() - t0
+            c["validate_s"] = list(validate_s)
+            # the optimistic update as the wire gave it, one byte of its signature changed
+            data = (await loop.run_in_executor(None, wire.get_lc_optimistic_update))["data"]
+            sig = bytearray.fromhex(data["sync_aggregate"]["sync_committee_signature"][2:])
+            sig[LC_TAMPERED_BYTE] ^= 0x01
+            data["sync_aggregate"]["sync_committee_signature"] = "0x" + sig.hex()
+            bad = client._as_full_update(from_json(t.LightClientOptimisticUpdate, data), t)
+            t0 = time.perf_counter()
+            try:
+                lc_mod.validate_light_client_update(client.store, bad, gvr,
+                                                    bytes(cfg.CAPELLA_FORK_VERSION), p)
+                c["forged_update"] = "accepted"
+            except LightClientError as e:
+                c["forged_update"] = f"LightClientError: {e}"
+            c["forged_validate_s"] = time.perf_counter() - t0
+    finally:
+        close()
+    c.update(head_slot=client.head_slot,
+             finalized_slot=client.finalized_slot, status=client.status, wire=wire.wire,
+             wire_bytes=sum(w + r for _, w, r, _ in wire.wire))
+    out["c"] = c
+    check(c["applied"] == 1, f"sync_to_head applied {c['applied']} updates, not 1")
+    check(client.status == RunStatusCode.STARTED, f"status {client.status} after sync")
+    last_parent = int(blocks[-1].message.slot) - 1
+    check(client.head_slot == last_parent,
+          f"the optimistic header is at slot {client.head_slot}, not {last_parent}")
+    check(client.finalized_slot == int(blocks[0].message.slot),
+          f"the finalized header moved to slot {client.finalized_slot}")
+    check(c["forged_update"].startswith("LightClientError"), "the forged update was accepted")
+    return out
+
+
+def lightclient_phase(dev, smi, blocked, synced, count=LC_BLOCKS):
+    """Phase 10e: `lc_run` on phase 10d's synced chain (B, head at slot 72)
+    on a fresh `BlsDeviceVerifierPool(mesh_mode="auto")`: `count` blocks with
+    full sync aggregates, then a fifth whose aggregate is signed over
+    another root, built on the head on the host; then the light client over
+    TCP. Each counted step sets the Fp launch counts and graph replays to 0
+    just before and reads them just after; the kernels' `lc_replayed` sums
+    the steps. Lines start `lightclient:`."""
+    import asyncio
+
+    from lodestar_tpu_torch.chain.bls import BlsDeviceVerifierPool
+    from lodestar_tpu_torch.chain.bls.pool import POOL_SIZE_CLASSES
+    from lodestar_tpu_torch.models import batch_verify as bv
+    from lodestar_tpu_torch.ops import fp_cuda
+    from lodestar_tpu_torch.ssz import device_htr as dh
+
+    setup = blocked["setup"]
+    p, cfg, sks = setup["p"], setup["cfg"], setup["sks"]
+    chain = synced["chains"]["synced"]
+    on_card = dev.type == "cuda"
+    cache = bv._SINGLE_LAUNCH_GRAPHS
+    captures = (cache.captures, dh.HTR_GRAPHS.captures, dh.ROOT_GRAPHS.captures)
+    out = {"steps": {}}
+    replayed_total = dict.fromkeys(fp_cuda.KERNELS, 0)
+    classes_seen = set()
+
+    def Step(name):
+        return CountedStep(dev, out["steps"], replayed_total, classes_seen, name)
+
+    head_slot = int(chain.get_head_state().slot)
+    slots = range(head_slot + 1, head_slot + count + 2)
+    t0 = time.perf_counter()
+    sync = {s: "full" for s in slots[:-1]}
+    sync[slots[-1]] = LC_FORGED_ROOT
+    built = build_segment(chain.get_head_state(), sks, p, cfg, slots, sync=sync)
+    out["build_s"] = time.perf_counter() - t0
+    out["slots"] = [slots[0], slots[-1]]
+
+    async def run():
+        chain.bls = (BlsDeviceVerifierPool(mesh_mode="auto") if on_card
+                     else BlsDeviceVerifierPool(device=dev))
+        try:
+            return await lc_run(chain, built[:-1], built[-1], p, cfg, step=Step,
+                                profile=f"a{count}" if on_card else None)
+        except P2pCheckFailed as e:
+            fail(str(e))
+        finally:
+            await chain.bls.close()
+
+    t0 = time.perf_counter()
+    rec = asyncio.run(run())
+    out["wall_s"] = time.perf_counter() - t0
+    want = {**{f"a{i + 1}": {8: 1} for i in range(count)}, "b": {8: 1}, "c": {}}
+    for name, classes in want.items() if on_card else ():
+        got = out["steps"][name]
+        if got["replays_by_class"] != classes:
+            fail(f"lightclient: step {name} replayed {got['replays_by_class']}, not {classes}")
+        if any(got["fp_eager"].values()):
+            fail(f"lightclient: eager kernel launches in step {name}: {got['fp_eager']}")
+        missing = [k for k in fp_cuda.KERNELS if classes and got["fp_replayed"][k] <= 0]
+        if missing:
+            fail(f"lightclient: kernels never launched by step {name}: {missing}")
+    unwarmed = sorted(classes_seen - set(POOL_SIZE_CLASSES))
+    if unwarmed:
+        fail(f"lightclient: replays at classes phase 7 did not warm: {unwarmed}")
+    now = (cache.captures, dh.HTR_GRAPHS.captures, dh.ROOT_GRAPHS.captures)
+    if now != captures:
+        fail(f"lightclient: graphs were captured in the phase (BLS, HTR level, HTR root: "
+             f"{captures} -> {now})")
+    out.update(rec)
+    out["replays"] = {name: s["replays_by_class"] for name, s in out["steps"].items()}
+    out["htr_replays"] = {name: s["htr_replays_by_class"] for name, s in out["steps"].items()}
+    out["replayed"] = replayed_total
+    plain = [r["import_s"] for r in out["imports"] if not r.get("profiled")]
+    profiled_rec = next((r for r in out["imports"] if r.get("profiled")), None)
+    if profiled_rec is not None and profiled_rec["busy_ms"]:
+        out["idle"] = 1 - profiled_rec["busy_ms"] / (1e3 * sum(plain) / len(plain))
+
+    st = out["steps"]
+    say(f"lightclient: blocks {out['slots'][0]}-{out['slots'][1] - 1} with full sync aggregates "
+        f"({p.SYNC_COMMITTEE_SIZE} bits) and the forged block {out['slots'][1]} built on the "
+        f"host in {out['build_s']:.2f} s; the first aggregate on the host oracle "
+        f"(eth_fast_aggregate_verify) {out['oracle_s']:.2f} s, True")
+    for i, r in enumerate(out["imports"]):
+        name = f"a{i + 1}"
+        say(f"lightclient: (a) block {r['slot']}: import {r['import_s']:.3f} s = set-building "
+            f"{r['sets_s']:.3f} s (the {p.SYNC_COMMITTEE_SIZE}-pubkey aggregation) + pool "
+            f"{r['pool_s']:.3f} s ({r['sets'][0]} sets) + the server's on_imported_block "
+            f"{r['server_s']:.3f} s + the rest; replays {st[name]['replays_by_class']}, HTR "
+            f"{st[name]['htr_replays_by_class']}, Fp launches {st[name]['fp_replayed']} on {smi}")
+    if profiled_rec is not None:
+        if not profiled_rec["busy_ms"]:
+            say("lightclient: (a) profiled import: device busy time not measured (no device "
+                "events)")
+        else:
+            say(f"lightclient: (a) block {profiled_rec['slot']} under the profiler: device busy "
+                f"{profiled_rec['busy_ms']:.1f} ms over {profiled_rec['device_events']} device "
+                f"events; idle {100 * out['idle']:.1f}% of the mean unprofiled import "
+                f"{sum(plain) / len(plain):.3f} s on {smi}")
+    r = out["forged"]
+    say(f"lightclient: (b) block {r['slot']} (aggregate over another root): {r['verdict']} in "
+        f"{r['import_s']:.3f} s (sets {r['sets_s']:.3f} s, pool {r['pool_s']:.3f} s); replays "
+        f"{st['b']['replays_by_class']}; head unchanged, no update from it")
+    c = out["c"]
+    say(f"lightclient: (c) Lightclient over req/resp on {c['transport']}: bootstrap "
+        f"{c['bootstrap_s']:.3f} s, sync_to_head {c['sync_s']:.3f} s ({c['applied']} update), "
+        f"poll_head {c['poll_s']:.3f} s; validate s per update "
+        f"{', '.join(f'{x:.3f}' for x in c['validate_s'])} (host oracle); optimistic header at "
+        f"slot {c['head_slot']}, finalized at {c['finalized_slot']}; the forged update "
+        f"({c['forged_validate_s']:.3f} s): {c['forged_update']}; on the wire "
+        f"{c['wire_bytes']} bytes over {len(c['wire'])} requests "
+        f"({', '.join(f'{n} {w}+{rd} B' for n, w, rd, _ in c['wire'])}); replays "
+        f"{st['c']['replays_by_class']}; phase {out['wall_s']:.1f} s")
+    return out
+
+
 # --- comparison with an earlier commit's kernels (--compare-parent) -----------
 
 
@@ -5092,6 +5415,8 @@ def main():
     synced = phase("sync", sync_phase, dev, smi, blocked)
     # 10d. discovery, range sync and gossip between two libp2p services
     p2ped = phase("p2p", p2p_phase, dev, smi, blocked, synced)
+    # 10e. full sync aggregates on the chain and a light client following it
+    lced = phase("lightclient", lightclient_phase, dev, smi, blocked, synced)
     # 11. check against the CPU path
     phase("check", check_against_cpu, dev)
     if parent is not None:
@@ -5137,6 +5462,7 @@ def main():
             "chain_replayed": chained["replayed"][name],
             "sync_replayed": synced["replayed"][name],
             "p2p_replayed": p2ped["replayed"][name],
+            "lc_replayed": lced["replayed"][name],
         }
         for label, per_rows in runs.items():
             by_rows = per_rows[name]
@@ -5184,6 +5510,8 @@ def main():
     say("sync: " + json.dumps({k: v for k, v in synced.items()
                                if k not in ("replayed", "chains")}))
     say("p2p: " + json.dumps({k: v for k, v in p2ped.items() if k != "replayed"}))
+    say("lightclient: " + json.dumps({k: v for k, v in lced.items() if k != "replayed"},
+                                     default=str))
     say(f"result: {main_run['sigs_per_s']:.1f} sigs/s verify-only, "
         f"{main_run['bytes_to_verdict_sigs_per_s']:.1f} sigs/s bytes to verdict ({merged}-set "
         f"merged batch, split schedule, device prep {main_run['prep_s']:.3f} s); single launch "

@@ -433,7 +433,7 @@ class BeaconChain:
         # verification through the device pool (verifyBlock.ts:89-111)
         import asyncio
 
-        sets = get_block_signature_sets(work_state, signed_block, ctx)
+        sets = get_block_signature_sets(work_state, signed_block, ctx, cfg=self.cfg)
 
         async def run_sigs():
             # own task: ensure_future snapshots the context, so the span

@@ -22,10 +22,11 @@ Design (hybrid host/device, SURVEY §7 hard part 4):
   with lazily-attached child views.
 
 Composite list elements are stored as root leaves (their own subtree is
-re-rooted on element write via the vectorized batch path).
+re-rooted on element write via the vectorized batch path); proofs *into*
+an element therefore go through the element type's `merkle_branch`, while
+state-field-level proofs come from `merkle_proof` here.
 
-A copy of `lodestar_tpu.ssz.tree` without its `merkle_proof` (nothing in
-the port serves proofs yet).
+A copy of `lodestar_tpu.ssz.tree`.
 """
 
 from __future__ import annotations
@@ -515,3 +516,54 @@ def tree_view(sszt: SSZType, value) -> TreeView:
     if isinstance(sszt, (Vector, Bitvector, Bitlist, ByteList, ByteVector, Uint, Boolean)):
         return _LeafView(sszt, value)
     return _LeafView(sszt, value)
+
+
+# --- merkle proofs (reference proof.ts / persistent-merkle-tree getProof) -----
+
+
+def merkle_proof(sszt, value, gindex: int) -> tuple[bytes, list[bytes]]:
+    """Single-leaf merkle branch for a CONTAINER FIELD by generalized
+    index.
+
+    Supported gindex domain: the container's top field layer — for a
+    container with its field count padded to 2^d leaves, field i has
+    gindex 2^d + i. (Deeper paths can be composed by proving recursively
+    on the field's own type; the Beacon API proof route serves the
+    field-level case, e.g. finalized_checkpoint or state roots out of
+    BeaconState.)
+
+    Returns (leaf, branch) with branch ordered leaf -> root, verifiable
+    by hashing leaf with each sibling per the gindex's bit path.
+    """
+    import hashlib
+
+    from .hash import ZERO_HASHES
+
+    if not isinstance(sszt, Container):
+        raise ValueError("merkle_proof supports container types")
+    n = len(sszt.fields)
+    depth = max(1, (n - 1).bit_length())
+    width = 1 << depth
+    if not (width <= gindex < 2 * width):
+        raise ValueError(
+            f"gindex {gindex} outside the field layer [{width}, {2 * width})"
+        )
+    index = gindex - width
+    leaves = [
+        ftype.hash_tree_root(getattr(value, fname)) for fname, ftype in sszt.fields
+    ]
+    leaves += [ZERO_HASHES[0]] * (width - n)
+    leaf = leaves[index]
+
+    branch = []
+    layer = leaves
+    idx = index
+    for _ in range(depth):
+        sibling = layer[idx ^ 1]
+        branch.append(sibling)
+        layer = [
+            hashlib.sha256(layer[2 * i] + layer[2 * i + 1]).digest()
+            for i in range(len(layer) // 2)
+        ]
+        idx //= 2
+    return leaf, branch

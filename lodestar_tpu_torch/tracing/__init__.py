@@ -17,8 +17,10 @@ in trailing metadata (key `TRACE_SPANS_KEY`) as the JAX package's JSON
 payload, and the client grafts them under its RPC span
 (`graft_remote_spans`); a client of either package reads the other's
 payload. `traced` is the decorator form of `span` (the state transition's
-signature-set producer wears it). The metric bridge and the Chrome-trace
-export of the JAX package are not copied.
+signature-set producer wears it). A slow trace is also written as a Chrome
+`trace_event` JSON file into `export_dir` when one is set, with its
+retention (`export.prune_export_dir`), as in the JAX package. The metric
+bridge of the JAX package is not copied (it comes with a metrics module).
 """
 
 from __future__ import annotations
@@ -242,9 +244,15 @@ class Tracer:
     the whole process; tests may build their own."""
 
     def __init__(self, *, enabled: bool = False, slow_slot_ms: float = 2000.0,
-                 ring_size: int = 64):
+                 export_dir: str | None = None, export_max_files: int | None = 256,
+                 export_max_age_s: float | None = None, ring_size: int = 64):
         self.enabled = enabled
         self.slow_slot_ms = slow_slot_ms
+        self.export_dir = export_dir
+        # retention for --tracing-export-dir: a long-running node's slow
+        # slots must not grow the directory unbounded
+        self.export_max_files = export_max_files
+        self.export_max_age_s = export_max_age_s
         self.ring: deque[Trace] = deque(maxlen=ring_size)
         self.slow_slot_dumps = 0
         self.last_slow_dump: dict | None = None
@@ -322,7 +330,7 @@ class Tracer:
 
     def _dump_slow(self, trace: Trace) -> None:
         """At most one dump per completed trace: a structured log line with
-        the critical path."""
+        the critical path, plus an optional Chrome-trace file."""
         path = critical_path(trace)
         path_str = " > ".join(f"{s.name} {s.duration_ms:.1f}ms" for s in path)
         info = {
@@ -337,10 +345,28 @@ class Tracer:
             self.slow_slot_dumps += 1
             self.last_slow_dump = info
         if self._log is None:
-            from .logger import get_logger
+            from ..logger import get_logger
 
             self._log = get_logger(name="lodestar.tracing")
         self._log.warn(f"slow slot {trace.slot}", info)
+        if self.export_dir:
+            try:
+                import os
+
+                from .export import prune_export_dir, write_chrome_trace
+
+                os.makedirs(self.export_dir, exist_ok=True)
+                out = os.path.join(
+                    self.export_dir, f"slot{trace.slot}_{trace.trace_id}.json"
+                )
+                write_chrome_trace(out, [trace])
+                prune_export_dir(
+                    self.export_dir,
+                    max_files=self.export_max_files,
+                    max_age_s=self.export_max_age_s,
+                )
+            except Exception:
+                pass  # export failures must never fail the import pipeline
 
     # -- queries --------------------------------------------------------------
 
@@ -368,6 +394,9 @@ def configure(
     *,
     enabled: bool | None = None,
     slow_slot_ms: float | None = None,
+    export_dir: str | None = None,
+    export_max_files: int | None = None,
+    export_max_age_s: float | None = None,
     ring_size: int | None = None,
 ) -> Tracer:
     """Mutate the global tracer in place (callers hold no stale refs)."""
@@ -376,6 +405,12 @@ def configure(
         t.enabled = enabled
     if slow_slot_ms is not None:
         t.slow_slot_ms = slow_slot_ms
+    if export_dir is not None:
+        t.export_dir = export_dir
+    if export_max_files is not None:
+        t.export_max_files = export_max_files
+    if export_max_age_s is not None:
+        t.export_max_age_s = export_max_age_s
     if ring_size is not None:
         with t._lock:
             t.ring = deque(t.ring, maxlen=ring_size)

@@ -1,8 +1,11 @@
-"""Small helpers the verifier pool and its breakers use; the bounded job
-queue the chain's regen runs on is in `utils.queue`.
+"""Cross-cutting helpers: retry, sleep, byte utils, math, and the
+profiler region; the bounded job queue the chain's regen runs on is in
+`utils.queue`.
 
-The PyTorch port's copies of ``lodestar_tpu/utils`` `backoff_delay` and of
-``lodestar_tpu/utils/tracing.py`` `trace_region`, the latter on
+The PyTorch port's copies of ``lodestar_tpu/utils`` (counterpart of the
+reference `packages/utils/src`: sleep.ts, retry.ts, bytes.ts, math.ts;
+`enable_compile_cache` is JAX's compile cache and has no counterpart) and
+of ``lodestar_tpu/utils/tracing.py`` `trace_region`, the latter on
 `torch.profiler` instead of the XLA profiler. Set
 ``LODESTAR_TPU_TRACE=<dir>`` and every traced region (a verifier-pool batch
 launch) writes a Chrome trace of the host and the card into that
@@ -11,13 +14,44 @@ directory; unset, the context manager is free (no profiler import).
 
 from __future__ import annotations
 
+import asyncio
 import contextlib
 import os
 import random
 import threading
-from typing import Callable
+import time
+from typing import Awaitable, Callable, TypeVar
 
-__all__ = ["backoff_delay", "trace_region", "tracing_enabled"]
+T = TypeVar("T")
+
+__all__ = [
+    "sleep",
+    "backoff_delay",
+    "retry",
+    "retry_sync",
+    "bytes_to_int",
+    "int_to_bytes",
+    "to_hex",
+    "from_hex",
+    "xor_bytes",
+    "int_div_ceil",
+    "bit_length",
+    "ErrorAborted",
+    "TimeoutError_",
+    "trace_region",
+    "tracing_enabled",
+]
+
+
+class ErrorAborted(Exception):
+    """Operation cancelled by an abort signal (reference utils/errors.ts)."""
+
+
+TimeoutError_ = asyncio.TimeoutError
+
+
+async def sleep(seconds: float) -> None:
+    await asyncio.sleep(seconds)
 
 
 def backoff_delay(
@@ -34,8 +68,8 @@ def backoff_delay(
     `jitter` fraction of the capped delay SUBTRACTED (jitter spreads a
     fleet of breakers opened by the same outage so they don't re-probe
     the recovering host in lockstep — downward, so the documented cap
-    is a true upper bound even at saturation). Used by the circuit
-    breaker's half-open schedule."""
+    is a true upper bound even at saturation). Used by `retry`'s backoff
+    mode and the circuit breaker's half-open schedule."""
     if attempt < 0:
         raise ValueError("attempt must be >= 0")
     delay = base * (factor ** attempt)
@@ -44,6 +78,114 @@ def backoff_delay(
     if jitter:
         delay -= delay * jitter * rng()
     return delay
+
+
+def _retry_delay_for(
+    attempt: int,
+    retry_delay: float,
+    backoff_factor: float | None,
+    max_delay: float | None,
+    jitter: float,
+) -> float:
+    """Fixed delay unless a backoff factor is given (keeps every
+    existing fixed-delay caller's behavior bit-for-bit)."""
+    if backoff_factor is None:
+        return retry_delay
+    return backoff_delay(
+        attempt, base=retry_delay, factor=backoff_factor, max_delay=max_delay, jitter=jitter
+    )
+
+
+async def retry(
+    fn: Callable[[], Awaitable[T]],
+    *,
+    retries: int = 3,
+    retry_delay: float = 0.0,
+    backoff_factor: float | None = None,
+    max_delay: float | None = None,
+    jitter: float = 0.0,
+    should_retry: Callable[[Exception], bool] | None = None,
+) -> T:
+    """Async retry (reference `utils/src/retry.ts`). Default is the
+    reference's fixed delay; passing `backoff_factor` switches to
+    exponential backoff (`retry_delay * factor**attempt`) with an
+    optional `max_delay` cap and `jitter` fraction.
+
+    Only `Exception` is retried: cancellation (CancelledError) and
+    KeyboardInterrupt propagate immediately.
+    """
+    if retries < 1:
+        raise ValueError("retries must be >= 1")
+    last: Exception | None = None
+    for attempt in range(retries):
+        try:
+            return await fn()
+        except Exception as e:
+            if should_retry is not None and not should_retry(e):
+                raise
+            last = e
+            if attempt < retries - 1 and retry_delay:
+                await asyncio.sleep(
+                    _retry_delay_for(attempt, retry_delay, backoff_factor, max_delay, jitter)
+                )
+    assert last is not None
+    raise last
+
+
+def retry_sync(
+    fn: Callable[[], T],
+    *,
+    retries: int = 3,
+    retry_delay: float = 0.0,
+    backoff_factor: float | None = None,
+    max_delay: float | None = None,
+    jitter: float = 0.0,
+    should_retry: Callable[[Exception], bool] | None = None,
+) -> T:
+    if retries < 1:
+        raise ValueError("retries must be >= 1")
+    last: Exception | None = None
+    for attempt in range(retries):
+        try:
+            return fn()
+        except Exception as e:
+            if should_retry is not None and not should_retry(e):
+                raise
+            last = e
+            if attempt < retries - 1 and retry_delay:
+                time.sleep(
+                    _retry_delay_for(attempt, retry_delay, backoff_factor, max_delay, jitter)
+                )
+    assert last is not None
+    raise last
+
+
+def bytes_to_int(data: bytes, endianness: str = "little") -> int:
+    return int.from_bytes(data, endianness)  # type: ignore[arg-type]
+
+
+def int_to_bytes(value: int, length: int, endianness: str = "little") -> bytes:
+    return value.to_bytes(length, endianness)  # type: ignore[arg-type]
+
+
+def to_hex(data: bytes) -> str:
+    return "0x" + data.hex()
+
+
+def from_hex(s: str) -> bytes:
+    return bytes.fromhex(s[2:] if s.startswith("0x") else s)
+
+
+def xor_bytes(a: bytes, b: bytes) -> bytes:
+    return bytes(x ^ y for x, y in zip(a, b))
+
+
+def int_div_ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def bit_length(n: int) -> int:
+    return n.bit_length()
 
 
 _TRACE_DIR = os.environ.get("LODESTAR_TPU_TRACE", "")

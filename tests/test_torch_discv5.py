@@ -8,7 +8,8 @@ and each package verifies the other's, and a tampered pair fails in both.
 `log2_distance` and the discv5 v5.1 ECDH vector agree. Over UDP on
 127.0.0.1, with the packages in both roles: the WHOAREYOU -> handshake ->
 PING/PONG flow and FINDNODE, a three-node discovery through a bootnode with
-the packages mixed, and junk datagrams ignored. The subnet-aware ordering of
+the packages mixed (seeded keys: a node in a distance band the bootstrap
+asks for is found, one outside them is not), and junk datagrams ignored. The subnet-aware ordering of
 ENRs by `attnets` (`Libp2pBeaconNetwork.enr_has_attnet`), and the subnets
 and discovery scenarios of `tests/network/test_subnets_discovery_builder.py`
 (the builder test's `execution` is not ported): the attnets lifecycle under
@@ -126,19 +127,31 @@ def test_handshake_ping_findnode_across_packages(ra, rb):
     assert asyncio.run(_ping_findnode(ra, rb)) == [True, True, True, True, [True], True]
 
 
-async def _three(rb, rc, ra):
-    b = dv(rb).discv5.Discv5Node()
+SEED_B, SEED_A = 1, 2  # log2_distance(A, B) = 256: A asks B for the bands 253-256
+SEED_NEAR_C = 3  # log2_distance(B, C) = 255, a band that A asks for
+SEED_FAR_C = 6  # log2_distance(B, C) = 250: below 253, and not d(A, B) or d(A, B) - 1
+
+
+def _node(root, seed, **kw):
+    return dv(root).discv5.Discv5Node(private_key=_key(random.Random(seed)), **kw)
+
+
+async def _three(rb, rc, ra, seed_c=SEED_NEAR_C):
+    b = _node(rb, SEED_B)
     await b.start()
-    c = dv(rc).discv5.Discv5Node(bootnodes=[])
+    c = _node(rc, seed_c, bootnodes=[])
     await c.start()
     try:
         out = [await c.ping(b.enr)]
-        a = dv(ra).discv5.Discv5Node(bootnodes=[b.enr])
+        a = _node(ra, SEED_A, bootnodes=[b.enr])
         await a.start()
         try:
-            out.append(await a.bootstrap(rounds=2) >= 2)
+            log2 = dv(ra).discv5.log2_distance
+            out.append((log2(a.node_id, b.node_id), log2(b.node_id, c.node_id)))
+            out.append(await a.bootstrap(rounds=2))  # the table's size
             out.append(c.enr.node_id in a.table)
-            out.append(await a.ping(a.table[c.enr.node_id]))
+            if out[-1]:
+                out.append(await a.ping(a.table[c.enr.node_id]))
             ids = {e.node_id for e in a.enr_source()}
             out.append({b.enr.node_id, c.enr.node_id} <= ids)
         finally:
@@ -150,13 +163,25 @@ async def _three(rb, rc, ra):
 
 
 THREES = [(J, T, T), (T, J, J), (T, T, J), (J, J, T)]
+THREE_IDS = ["-".join(NAMES[r] for r in x) for x in THREES]
 
 
-@pytest.mark.parametrize("layout", THREES, ids=["-".join(NAMES[r] for r in x) for x in THREES])
+@pytest.mark.parametrize("layout", THREES, ids=THREE_IDS)
 def test_three_node_discovery_with_the_packages_mixed(layout):
     """C is known to B only; A, with B as its bootnode, finds C through
-    FINDNODE at B and then talks to C directly (layout: B, C, A)."""
-    assert asyncio.run(_three(*layout)) == [True] * 5
+    FINDNODE at B and then talks to C directly (layout: B, C, A). The keys
+    are seeded, so that C lies in a distance band that A's bootstrap asks B
+    for, and every run is the same."""
+    assert asyncio.run(_three(*layout)) == [True, (256, 255), 2, True, True, True]
+
+
+@pytest.mark.parametrize("layout", THREES, ids=THREE_IDS)
+def test_three_node_discovery_misses_a_node_outside_the_asked_bands(layout):
+    """The same three nodes, with C at log2 distance 250 from B: A's bootstrap
+    asks B only for the bands 253-256, d(A, B) and d(A, B) - 1, so neither
+    package finds C in two rounds (the reference's behaviour, kept)."""
+    got = asyncio.run(_three(*layout, seed_c=SEED_FAR_C))
+    assert got == [True, (256, 250), 1, False, False]
 
 
 async def _garbage(ra, rb):

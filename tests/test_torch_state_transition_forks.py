@@ -153,7 +153,23 @@ def scenario_altair_block(pk, obs):
     pk.st.process_slots(state, p.SLOTS_PER_EPOCH, p, cfg)
     signed, work, ctx = altair_block(pk, state, state.slot + 1, secret_keys(pk.root, N), cfg)
     obs.add("block", signed)
-    obs.add("sets", pk.sets.get_block_signature_sets(work, signed, ctx))
+    sets = pk.sets.get_block_signature_sets(work, signed, ctx)
+    if pk.root == ROOTS[1]:
+        # the port's departure: the sync aggregate's set comes last, its
+        # participants' pubkeys aggregated, over the previous slot's root
+        sync_set = sets.pop()
+        agg = signed.message.body.sync_aggregate
+        members = [bytes(k) for k, bit in zip(work.current_sync_committee.pubkeys,
+                                              agg.sync_committee_bits) if bit]
+        prev_slot = work.slot - 1
+        domain = pk.util.get_domain(work, pk.params.DOMAIN_SYNC_COMMITTEE,
+                                    prev_slot // p.SLOTS_PER_EPOCH)
+        root = pk.util.get_block_root_at_slot(work, prev_slot, p)
+        assert sync_set == pk.bls.SignatureSet(
+            pk.bls.aggregate_pubkeys(members), hashlib.sha256(root + domain).digest(),
+            bytes(agg.sync_committee_signature))
+        assert pk.bls.verify_signature_sets([sync_set])
+    obs.add("sets", sets)
     post = obs.call("import", pk.st.state_transition, state, signed, p, cfg)
     obs.add("post", post)
     bad = signed.copy()
