@@ -9,7 +9,12 @@ CUDA toolkit (nvcc):
 Phases, in order; any failure exits non-zero and prints no result:
 
 1. probe    torch version, CUDA device, `nvidia-smi` name and power limit.
-2. build    compile the Fp kernels (ops/csrc/fp_kernels.cu) from source.
+2. build    compile the Fp kernels (ops/csrc/fp_kernels.cu) from source with
+            nvcc and, beside it, the native host libraries with g++
+            (native/sha256_batch.cpp, native/bls_host.cpp, into
+            native/_build/): fails if either does not build or load or the
+            BLS one fails its self-test; prints the SHA-256 backend and
+            each build's s.
 3. kernels  each of the five kernels against its plain PyTorch version on
             the card, bit for bit (tolerance 0), at the tile edges of the
             kernels and the main path's row counts (N_KERNEL_CHECK), on
@@ -36,7 +41,13 @@ Phases, in order; any failure exits non-zero and prints no result:
             prep time per 2048 sets, the oracle's per 128, and
             bytes-to-verdict sigs/s beside verify-only sigs/s. Launch
             counts are reset just before and read just after; every kernel
-            must have launched.
+            must have launched. Then the host road (`prep="off"`): the 2048
+            merged sets through `prepare_sets` on the native C++ library
+            (TIMED_RUNS timed; s and sets/s), its limbs equal to
+            device prep's on canonical values and to the oracle's limb for
+            limb on the 128 unique sets; one split-schedule verify of the
+            native inputs (True, every kernel launched), the swapped batch
+            False and the invalid-point batch rejected by the native prep.
 5. profile  where the time of one merged 2048-set verify and of one
             2048-set prep goes: each kernel's launches per verify and per
             prep by row count, and its kernel ms per verify and per prep
@@ -88,7 +99,14 @@ Phases, in order; any failure exits non-zero and prints no result:
             and replays by class; the API run again through a pipelined
             pool (`pipeline="on"`) prints its `pipeline_stats()`. Every
             kernel must be launched by a replay while the pool serves, and
-            none eagerly.
+            none eagerly. `create_metrics()`'s families are attached to the
+            first pool (`sched_metrics=`, `pipeline_metrics=`), prep
+            (`configure_device_prep(metrics=)`), the launch telemetry and the
+            SLO accountant before it serves; its scrape through a
+            `MetricsServer` on 127.0.0.1 (bytes, ms) must equal the pool's
+            jobs started, the lane's launches, `prep_counts()`, the replays
+            by class (one `_single_launch_verify` dispatch each) and the
+            jobs' verdicts by class.
 7b. offload the offload host (`offload/server.py`) as its entry point builds it:
             `build_server(OFFLOAD_ARGV)` (the CUDA mesh, one lane on one GPU,
             every pool class captured; one service slot, tenants a=1 and
@@ -113,7 +131,10 @@ Phases, in order; any failure exits non-zero and prints no result:
             128 True and the tampered job False, each served by the device
             layer with zero fallbacks and skips. No capture, no eager
             launch, every kernel launched by a replay, the lane breakers
-            clean. Lines start `offload:`.
+            clean. The host is built with `--metrics-port` on a free port:
+            its lodestar_offload_tenant_* scrape must equal the sets served
+            per tenant, the tenancy's sheds, the weights and no slot held.
+            Lines start `offload:`.
 7c. client  the port's offload client (`offload/client.py`) over two hosts on
             the card: "h100-a" is 7b's host, "h100-b" a second
             `BlsOffloadServer` over the same lanes with the same tenancy
@@ -138,8 +159,11 @@ Phases, in order; any failure exits non-zero and prints no result:
             lifted by unquarantine_endpoint. (e) DegradingBlsVerifier
             [client, device pool, CPU oracle]: both hosts cut, the pool
             serves (counted); healed, the client serves. No capture, no
-            eager launch, every kernel replayed. Lines start
-            `offload-client:`.
+            eager launch, every kernel replayed. The clients' `metrics=` and
+            the auditor's feed one `create_metrics()`'s `ResilienceMetrics`
+            and `AuditMetrics`: the scrape's routed, failover, hedge,
+            hedge-win and shed totals equal the runs' counts, and its audit
+            counters the auditor's. Lines start `offload-client:`.
 7d. sharded the sharded verify (`verify_signature_sets_sharded`) over
             every visible GPU, or cuda:0 twice on one GPU. First, outside
             the counted run: the single launch's verdict on a tampered copy
@@ -161,16 +185,20 @@ Phases, in order; any failure exits non-zero and prints no result:
             `ssz/device_htr.py` and `ops/sha256.py`), on the card by default
             (mode "auto"): each merkle level of at least 2048 pairs is one
             replay of a CUDA graph captured per pow-2 pair class
-            (`graphs.GraphCache`), smaller levels are hashed with hashlib.
+            (`graphs.GraphCache`), smaller levels are hashed on the host
+            (the native batch hasher, `native/sha256_batch.cpp`).
             (a) `merkle_root` of 2^20 random chunks (bench.py's seed 0), one
             graph for the tree: 1 warm-up with the capture, 5 timed, the
-            root equal to hashlib's; pair-hashes/s. (b) the collector on a
+            root equal to hashlib's; pair-hashes/s; the host hasher's
+            backend and its pair-hashes/s on the tree and on a 2,047-pair
+            level (the largest host level) beside hashlib's, the native
+            root equal to hashlib's. (b) the collector on a
             2^18-chunk stack with 4096 dirty chunks a flush, 5 flushes, each
             on the device with at most 18 launches; chunks/s. (c) a mainnet
             Capella BeaconState with 2^20 validators: a cold root,
             HTR_ROUNDS epoch-boundary round(s), as many slot-shaped rounds
             and a profiled epoch round through `state_hash_tree_root`, each root equal to a second
-            tracker's on the same state hashed with hashlib only (no launch,
+            tracker's on the same state hashed on the host only (no launch,
             no replay); each round prints host prepare s, flush s, launches,
             replays by pair class and captures (none after the cold root).
             (d) each level graph's capture and instantiate s, nodes, pool MiB
@@ -207,7 +235,7 @@ Phases, in order; any failure exits non-zero and prints no result:
             BLOCK_SLOT with its randao reveal, 2 x 32 attestations (every
             committee of slots 1-32, every member attesting), an empty sync
             aggregate and its state root from a host-only run (every hash
-            hashlib's). The import, counts and replays set to 0 just before
+            the host hasher's). The import, counts and replays set to 0 just before
             and read just after: `process_slots` to the block's slot (its
             state roots through the HTR level graphs), the block's 66
             signature sets, then the sets through `BlsDeviceVerifierPool` on
@@ -796,7 +824,7 @@ def main_path(dev, smi):
 
     # the 128 unique sets' device-prepped arrays against the oracle's prep
     t0 = time.perf_counter()
-    oracle = bv.prepare_sets(sets)
+    oracle = bv.prepare_sets_oracle(bv._set_bytes(sets))
     oracle_s = time.perf_counter() - t0
     if oracle is None:
         fail("the oracle prep rejected the synthetic sets")
@@ -850,6 +878,7 @@ def main_path(dev, smi):
     missing = [k for k in fp_cuda.KERNELS if per_prep[k] <= 0]
     if missing:
         fail(f"kernels never launched by the {merged}-set prep: {missing}")
+    native = native_prep(dev, smi, merged_sets, (pk_m, h_m, sig_m), oracle, tampered, bad)
     return {
         "launches": launches,
         "per_verify_rows": per_verify_rows,
@@ -861,7 +890,69 @@ def main_path(dev, smi):
         "merged_inputs": (pk_m, h_m, sig_m, mask_m, fresh_bits),
         "merged_sets": merged_sets,
         "batches": {"valid": sets, "swapped": tampered, "invalid": bad_full},
+        "native": native,
     }
+
+
+def native_prep(dev, smi, merged_sets, device_prepped, oracle, tampered, bad):
+    """The host road (`prep="off"`): the merged sets prepared by the native
+    C++ library through `prepare_sets` (TIMED_RUNS timed; the library was
+    built and loaded in phase 2, so no warm-up), its pk/h/sig limbs equal
+    to device prep's on canonical values for all the rows and to the
+    oracle's limb for limb on the BATCH unique sets; one split-schedule
+    verify of the native inputs, copied to the card as
+    `build_device_inputs(prep="off")` copies them (True, every kernel
+    launched), the swapped batch through the host road (False) and the
+    invalid-point batch rejected by the native prep itself."""
+    import torch
+
+    from lodestar_tpu_torch.models import batch_verify as bv
+    from lodestar_tpu_torch.native import bls as native_bls
+    from lodestar_tpu_torch.ops import fp, fp_cuda
+
+    if not native_bls.available():
+        fail("the native BLS library is unavailable")
+    merged = len(merged_sets)
+    times, prepared = [], None
+    for _ in range(TIMED_RUNS):
+        t0 = time.perf_counter()
+        prepared = bv.prepare_sets(merged_sets)
+        times.append(time.perf_counter() - t0)
+        if prepared is None:
+            fail("the native prep rejected the merged sets")
+    prep_s = sum(times) / len(times)
+    for name, dev_pt, host_pt, ref_pt in zip(("pk", "h", "sig"), device_prepped, prepared, oracle):
+        for c, (d, h, ref) in enumerate(zip(dev_pt, host_pt, ref_pt)):
+            if not (h[:BATCH] == ref).all():
+                fail(f"native prep's {name}[{c}] differs from the oracle's limb for limb")
+            if not torch.equal(fp.from_mont(torch.as_tensor(h, device=dev)), fp.from_mont(d)):
+                fail(f"native prep's {name}[{c}] differs from device prep's on canonical values")
+    say(f"main: native prep (host road, prep=\"off\") of {merged} sets x{TIMED_RUNS}: "
+        f"{', '.join(f'{t:.3f}' for t in times)} s, {merged / prep_s:.1f} sets/s; pk/h/sig == "
+        f"device prep's on canonical values, == the oracle's limb for limb on {BATCH} sets")
+    if bv.prepare_sets(bad) is not None:
+        fail("the native prep accepted the off-curve pubkey and off-subgroup signature")
+    before = dict(fp_cuda.LAUNCHES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bits, mask = bv._blinding_and_mask(merged, merged)
+    inputs = bv.inputs_from_numpy(*prepared, bits, mask, dev)
+    if not bool(bv.device_batch_verify(*inputs)):
+        fail("the split-schedule verify of the natively prepared sets is not True")
+    torch.cuda.synchronize()
+    verify_s = time.perf_counter() - t0
+    launched = {k: fp_cuda.LAUNCHES[k] - before[k] for k in fp_cuda.KERNELS}
+    missing = [k for k in fp_cuda.KERNELS if launched[k] <= 0]
+    if missing:
+        fail(f"the verify of natively prepared sets never launched {missing}")
+    if bv.verify_signature_sets_device(tampered, device=dev, prep="off") is not False:
+        fail("the swapped batch verified through the host road")
+    say(f"main: natively prepared {merged} sets verify True in {verify_s:.3f} s (copy + split "
+        f"verify), launches {launched}; the swapped batch False, the invalid-point batch "
+        f"rejected by the native prep; on {smi}")
+    return {"prep_s": prep_s, "sets_per_s": merged / prep_s, "times_s": times,
+            "copy_and_verify_s": verify_s,
+            "bytes_to_verdict_sigs_per_s": merged / (prep_s + verify_s), "launches": launched}
 
 
 # --- phase 5 -----------------------------------------------------------------
@@ -1243,19 +1334,60 @@ def verify_many(dev, smi, main):
 # --- phase 7 -----------------------------------------------------------------
 
 
+def scrape_metrics(target, port=0):
+    """GET /metrics from a `metrics.MetricsServer` over `target` (anything
+    with `scrape()`) on 127.0.0.1, or from the server already listening on
+    `port` when `target` is None. Returns ({(name, labels): value} of every
+    sample but the `_created` ones, the body's bytes, the GET's ms)."""
+    import urllib.request
+
+    from prometheus_client.parser import text_string_to_metric_families
+
+    from lodestar_tpu_torch.metrics import MetricsServer
+
+    server = None
+    if target is not None:
+        server = MetricsServer(target, port=0, host="127.0.0.1")
+        server.start()
+        port = server.port
+    try:
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=30) as resp:
+            body = resp.read()
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        if server is not None:
+            server.stop()
+    out = {}
+    for fam in text_string_to_metric_families(body.decode()):
+        for smp in fam.samples:
+            if not smp.name.endswith("_created"):
+                out[(smp.name, tuple(sorted(smp.labels.items())))] = smp.value
+    return out, len(body), ms
+
+
+def sample_sum(samples, name, **labels):
+    """Sum of the samples named `name` whose labels include `labels`."""
+    return sum(v for (n, lab), v in samples.items()
+               if n == name and all(dict(lab).get(k) == str(x) for k, x in labels.items()))
+
+
 def serve(dev, smi, main):
     """Phase 7: serving through the port's verifier pool. Every size class a
     package of the pool can reach (`POOL_SIZE_CLASSES`) is captured by
     `warm_single_launch` first; then a pool built as a node builds it
     (`mesh_mode="auto"`: one lane on one GPU) serves API, range-sync and
     gossip traffic, a tampered job and two malformed sets, with no capture
-    while it serves. Returns its figures and counts."""
+    while it serves; `create_metrics()`'s families are attached to that
+    pool, its scheduler, prep, the launch telemetry and the SLO accountant
+    before it serves, and scraped after (`check_serve_scrape`). Returns its
+    figures and counts."""
     import asyncio
     import dataclasses
 
     import torch
 
-    from lodestar_tpu_torch import graphs
+    from lodestar_tpu_torch import graphs, slo, telemetry
     from lodestar_tpu_torch.chain.bls import BlsDeviceVerifierPool, VerifySignatureOpts
     from lodestar_tpu_torch.chain.bls.pool import POOL_SIZE_CLASSES
     from lodestar_tpu_torch.models import batch_verify as bv
@@ -1312,9 +1444,11 @@ def serve(dev, smi, main):
         return list(await asyncio.gather(*(pool.verify_signature_sets(j, opts) for j in jobs)))
 
     runs = {}
+    verdicts = {}  # priority label -> the jobs' verdicts, for the scrape's SLO counts
 
     async def serve_all():
-        pool = BlsDeviceVerifierPool(mesh_mode="auto")
+        pool = BlsDeviceVerifierPool(mesh_mode="auto", sched_metrics=metrics.sched,
+                                     pipeline_metrics=metrics.bls_pipeline)
         if len(pool.mesh) != torch.cuda.device_count():
             fail(f"serve: the auto mesh has {len(pool.mesh)} lanes on "
                  f"{torch.cuda.device_count()} devices")
@@ -1345,6 +1479,7 @@ def serve(dev, smi, main):
             say(f"serve: {name}: {len(jobs)} jobs, {n_sets} sets in {wall:.3f} s "
                 f"({run['sigs_per_s']:.1f} sigs/s), {run['launches']} launches, replays by "
                 f"class {by_class} on {smi}")
+            verdicts.setdefault(priority.label, []).extend(got)
             if got != want:
                 fail(f"serve: {name} gave {got}, not {want}")
             if want_replays is not None and by_class != want_replays:
@@ -1354,6 +1489,10 @@ def serve(dev, smi, main):
                 fail(f"serve: {name} replayed {by_class} in {run['launches']} launches")
         if lane.breaker.state().name != "CLOSED" or lane.breaker._failures:
             fail(f"serve: the lane's breaker shows a failure ({lane.breaker.state().name})")
+        runs["pool_counts"] = dict(pool.metrics)
+        runs["lane"] = {"label": lane.label, "launches": lane.launches}
+        scraped.update(check_serve_scrape(smi, metrics, runs, verdicts, served_replays(),
+                                          pool))
         await pool.close()
 
         # the api run again through the pipelined pool: the same verdicts
@@ -1370,10 +1509,33 @@ def serve(dev, smi, main):
         say(f"serve: api_16x128 pipelined: {wall:.3f} s ({BATCH * MERGE_JOBS / wall:.1f} "
             f"sigs/s), pipeline_stats {stats} on {smi}")
 
+    from lodestar_tpu_torch.metrics import create_metrics
+
+    metrics = create_metrics()
+    bv.configure_device_prep(metrics=metrics.bls_prep)
+    telemetry.reset_launch_telemetry()
+    telemetry.configure_launch_telemetry(metrics=metrics.device_launch)
+    # the slack floor far below any slack: sli_good then counts the True verdicts
+    slo.configure_slo(genesis_time=time.time(), slack_floor_ms=-1e12, metrics=metrics.slo)
+    bv.reset_prep_counts()
+    scraped = {}
     captures = cache.captures
+    before_serving = replays()
+
+    def served_replays():
+        now = replays()
+        return {k: now[k] - before_serving.get(k, 0) for k in now
+                if now[k] != before_serving.get(k, 0)}
+
     fp_cuda.reset_launches()
     graphs.reset_replayed()  # the serving path's run starts here
-    asyncio.run(serve_all())
+    try:
+        asyncio.run(serve_all())
+    finally:  # the families stay with this phase
+        bv._prep_metrics = None
+        bv.dp.configure_launch_counter(None)
+        telemetry.reset_launch_telemetry()
+        slo.reset_slo()
     replayed = dict(graphs.REPLAYED)  # the serving path's run ends here
     if cache.captures != captures:
         fail(f"serve: {cache.captures - captures} graphs were captured while the pool served")
@@ -1383,7 +1545,72 @@ def serve(dev, smi, main):
     if any(fp_cuda.LAUNCHES.values()):
         fail(f"serve: eager kernel launches while the pool served: {dict(fp_cuda.LAUNCHES)}")
     say(f"serve: no capture while serving; Fp launches replayed {replayed}")
-    return {"warm_s": warm_s, "per_class": per_class, "runs": runs, "replayed": replayed}
+    return {"warm_s": warm_s, "per_class": per_class, "runs": runs, "replayed": replayed,
+            "scrape": scraped}
+
+
+def check_serve_scrape(smi, metrics, runs, verdicts, replays_by_class, pool):
+    """Phase 7's scrape, through a `MetricsServer` on 127.0.0.1, held
+    against the pool's own counts, the prep counters and the replays the
+    phase counted: jobs dequeued (by class) = the pool's jobs started; lane
+    launches = the lane's; prep sets and rejects = `prep_counts()`; the
+    single-launch dispatches by size class = the graph replays by class, one
+    prep-seam launch each; SLO verdicts and True verdicts by class = the
+    jobs'. Returns the scrape's bytes and ms and the compared figures."""
+    from lodestar_tpu_torch.models import batch_verify as bv
+
+    s, n_bytes, ms = scrape_metrics(metrics)
+    counts = bv.prep_counts()
+    pool_counts = runs["pool_counts"]
+    lane = runs["lane"]
+    dequeued = sample_sum(s, "lodestar_sched_jobs_dequeued_total")
+    by_program = {}
+    for (name, labels), v in s.items():
+        if name == "lodestar_device_launch_seconds_count" and v:
+            lab = dict(labels)
+            by_program.setdefault(lab["program"], {})[int(lab["size_class"])] = int(v)
+    single = by_program.get("_single_launch_verify", {})
+    got = {
+        "jobs_dequeued": dequeued,
+        "lane_launches": sample_sum(s, "lodestar_sched_lane_launches_total", device=lane["label"],
+                                    mode="single"),
+        "prep_sets": {layer: sample_sum(s, "lodestar_bls_prep_sets_total", layer=layer)
+                      for layer in bv.PREP_LAYERS},
+        "prep_rejected": sample_sum(s, "lodestar_bls_prep_rejected_total"),
+        "prep_launches": sample_sum(s, "lodestar_bls_prep_launches_total"),
+        "launches_by_program": by_program,
+        "slo_verdicts": {c: sample_sum(s, "lodestar_slo_sli_total", **{"class": c})
+                         for c in verdicts},
+        "slo_true": {c: sample_sum(s, "lodestar_slo_sli_good_total", **{"class": c})
+                     for c in verdicts},
+        "fallbacks": sample_sum(s, "lodestar_bls_prep_fallbacks_total")
+        + sample_sum(s, "lodestar_bls_prep_single_launch_fallbacks_total"),
+        "mesh_lanes": sample_sum(s, "lodestar_sched_mesh_lanes_available"),
+    }
+    want = {
+        "jobs_dequeued": pool_counts["jobs_started"],
+        "lane_launches": lane["launches"],
+        "prep_sets": {layer: counts["sets"][layer] for layer in bv.PREP_LAYERS},
+        "prep_rejected": counts["rejected"],
+        "prep_launches": sum(replays_by_class.values()),
+        "launches_by_program": {"_single_launch_verify": replays_by_class,
+                                "bls_lane_verify": by_program.get("bls_lane_verify", {})},
+        "slo_verdicts": {c: len(v) for c, v in verdicts.items()},
+        "slo_true": {c: v.count(True) for c, v in verdicts.items()},
+        "fallbacks": 0,
+        "mesh_lanes": len(pool.mesh.available()),
+    }
+    lane_by_class = sum(by_program.get("bls_lane_verify", {}).values())
+    say(f"serve: scrape of create_metrics() through a MetricsServer on 127.0.0.1: {n_bytes} "
+        f"bytes in {ms:.2f} ms; jobs dequeued {dequeued} (the pool's jobs started "
+        f"{pool_counts['jobs_started']}, sets started {pool_counts['sig_sets_started']}), lane "
+        f"launches {got['lane_launches']}, prep sets {got['prep_sets']}, single-launch dispatches "
+        f"by class {single} (replays {replays_by_class}), SLO verdicts {got['slo_verdicts']}, "
+        f"True {got['slo_true']} on {smi}")
+    if got != want or lane_by_class != lane["launches"] or not dequeued:
+        fail(f"serve: the scrape {got} disagrees with the phase's counts {want} "
+             f"(bls_lane_verify launches {lane_by_class})")
+    return {"bytes": n_bytes, "ms": ms, "compared": got}
 
 
 # --- phase 7b ----------------------------------------------------------------
@@ -1396,23 +1623,40 @@ OFFLOAD_ARGV = ("--bls-mesh", "auto", "--workers", "4", "--tenant-slots", "1",
 
 
 class _Counter:
-    """A labelled counter (or gauge) of the duck-typed metrics that
-    `DegradingBlsVerifier` and `BlsOffloadClient` take."""
+    """A labelled counter (or gauge) that `DegradingBlsVerifier`,
+    `BlsOffloadClient` and `OffloadAuditor` write to: counted here, and
+    passed on to `real` (a family of `lodestar_tpu_torch.metrics`) when one
+    is given, so a scrape can be held against the phase's own counts."""
 
-    def __init__(self):
+    def __init__(self, real=None):
         self.counts = {}
+        self.real = real
 
     def labels(self, *key):
-        counts = self.counts
+        counts, real = self.counts, self.real
 
         class _One:
             def inc(self, by=1):
                 counts[key] = counts.get(key, 0) + by
+                if real is not None:
+                    real.labels(*key).inc(by)
 
             def set(self, value):
                 counts[key] = value
+                if real is not None:
+                    real.labels(*key).set(value)
 
         return _One()
+
+    def inc(self, by=1):  # an unlabelled family (the auditor's cpu_seconds)
+        self.counts[()] = self.counts.get((), 0) + by
+        if self.real is not None:
+            self.real.inc(by)
+
+    def set(self, value):  # an unlabelled gauge (the auditor's queue_depth)
+        self.counts[()] = value
+        if self.real is not None:
+            self.real.set(value)
 
     def total(self):
         return sum(self.counts.values())
@@ -1465,6 +1709,7 @@ def offload(dev, smi, main, served):
         SETS_TRAILER_VERSION,
         OffloadError,
         OffloadShed,
+        decode_sets_ex,
         decode_status,
         decode_verdict,
         encode_sets,
@@ -1483,12 +1728,21 @@ def offload(dev, smi, main, served):
     say(f"offload: grpc {'imports' if have_grpc else 'does not import'} on this machine "
         f"(recorded only: the phase serves in-process through LocalStub)")
 
-    # (a) the host as its entry point builds it
+    # (a) the host as its entry point builds it, its tenant families scraped
+    # over HTTP on a free port (`--metrics-port`)
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        metrics_port = sock.getsockname()[1]
+    argv = [*OFFLOAD_ARGV, "--metrics-port", str(metrics_port)]
     t0 = time.perf_counter()
-    server = osrv.build_server(list(OFFLOAD_ARGV))
+    server = osrv.build_server(argv)
     build_s = time.perf_counter() - t0
     mesh = server.mesh
-    say(f"offload: (a) build_server({' '.join(OFFLOAD_ARGV)}) in {build_s:.1f} s: "
+    if server.metrics_server is None or server.metrics_server.port != metrics_port:
+        fail(f"offload: --metrics-port {metrics_port} started no scrape server")
+    say(f"offload: (a) build_server({' '.join(argv)}) in {build_s:.1f} s: "
         f"{len(mesh)} lane(s) on {[str(lane.device) for lane in mesh.lanes]}, classes "
         f"{list(POOL_SIZE_CLASSES)} captured (all of them by phase 7 already in this process)")
     cache = bv._SINGLE_LAUNCH_GRAPHS
@@ -1535,6 +1789,13 @@ def offload(dev, smi, main, served):
         return verdict(frame, stub(frame))  # no deadline: see PERF.md §7
 
     runs = {}
+    served_sets = {}  # tenant -> sets of the frames that got a verdict
+
+    def count_served(frame, got):
+        if isinstance(got, bool):
+            sets_, trailer = decode_sets_ex(frame)
+            tenant = trailer.tenant if trailer is not None else ""
+            served_sets[tenant] = served_sets.get(tenant, 0) + len(sets_)
 
     def run(name, frames, want, want_replays):
         before, served_before = replays(), dict(server.tenancy.served)
@@ -1555,6 +1816,8 @@ def offload(dev, smi, main, served):
             f"({len(frames) / wall:.2f} frames/s, {n_sets / wall:.1f} sigs/s), replays by class "
             f"{by_class}, served by tenant {tenants}, verdicts {sorted(set(map(str, got)))} "
             f"on {smi}")
+        for frame, g in zip(frames, got):
+            count_served(frame, g)
         if [g if isinstance(g, bool) else g.split(":")[0] for g in got] != want:
             fail(f"offload: {name} gave {got}, not {want}")
         if by_class != want_replays:
@@ -1587,6 +1850,7 @@ def offload(dev, smi, main, served):
     finally:
         tracing.reset()
     got = verdict(gossip[0], reply)
+    count_served(gossip[0], got)
     names = [item["name"] for item in json.loads(payload)] if payload else []
     after = replays()
     by_class = {k: after[k] - before.get(k, 0) for k in after if after[k] != before.get(k, 0)}
@@ -1599,6 +1863,7 @@ def offload(dev, smi, main, served):
     lane = mesh.lanes[0]
     if lane.breaker.state().name != "CLOSED" or lane.breaker._failures:
         fail(f"offload: the lane's breaker shows a failure ({lane.breaker.state().name})")
+    tenant_scrape = check_tenant_scrape(smi, server, metrics_port, served_sets)
 
     # (d) the degradation chain, served by its device layer
     metrics = FallbackMetrics()
@@ -1655,7 +1920,32 @@ def offload(dev, smi, main, served):
     say(f"offload: no capture while serving; Fp launches replayed {replayed}")
     # the host keeps serving: phase 7c's client routes to it (and stops it)
     return {"grpc": have_grpc, "build_s": build_s, "runs": runs, "degrading": degrading,
-            "replayed": replayed, "phase_s": time.perf_counter() - t_phase, "server": server}
+            "tenant_scrape": tenant_scrape, "replayed": replayed,
+            "phase_s": time.perf_counter() - t_phase, "server": server}
+
+
+def check_tenant_scrape(smi, server, port, served_sets):
+    """Phase 7b's scrape of the host's `--metrics-port`: the
+    lodestar_offload_tenant_* families per tenant against the tenancy's own
+    counts: sets served = the sets of the frames that got a verdict, sheds
+    (by reason, summed) = `tenancy.shed`, the stride weights the flags', no
+    slot still granted. Returns the scrape's bytes and ms and the figures."""
+    s, n_bytes, ms = scrape_metrics(None, port=port)
+    tenants = sorted(set(server.tenancy.served) | set(server.tenancy.shed) | set(served_sets))
+    got = {t: {"served_sets": sample_sum(s, "lodestar_offload_tenant_served_sets_total", tenant=t),
+               "shed": sample_sum(s, "lodestar_offload_tenant_shed_total", tenant=t),
+               "inflight": sample_sum(s, "lodestar_offload_tenant_inflight", tenant=t)}
+           for t in tenants}
+    want = {t: {"served_sets": served_sets.get(t, 0), "shed": server.tenancy.shed.get(t, 0),
+                "inflight": 0} for t in tenants}
+    weights = {t: sample_sum(s, "lodestar_offload_tenant_quota_weight", tenant=t) for t in "ab"}
+    say(f"offload: scrape of --metrics-port {port}: {n_bytes} bytes in {ms:.2f} ms; per tenant "
+        f"{got}; tenancy grants {dict(server.tenancy.served)}, sheds "
+        f"{dict(server.tenancy.shed)}; weights {weights} on {smi}")
+    if got != want or weights != {"a": 1, "b": 3} or not served_sets:
+        fail(f"offload: the tenant scrape {got} (weights {weights}) disagrees with the "
+             f"tenancy's counts {want}")
+    return {"bytes": n_bytes, "ms": ms, "per_tenant": got}
 
 
 # --- phase 7c ----------------------------------------------------------------
@@ -1683,12 +1973,19 @@ CLIENT_AUDIT_SEED = 0
 
 class ClientMetrics:
     """The `metrics=` of `BlsOffloadClient` (routed, failovers, hedges,
-    hedge_wins, shed, breaker_state, breaker_transitions), counted here."""
+    hedge_wins, shed, breaker_state, breaker_transitions) or of
+    `OffloadAuditor` (sampled, verified, dropped, byzantine, trust_score,
+    quarantined, queue_depth, cpu_seconds), counted here and passed on to
+    `real`, the `ResilienceMetrics` or `AuditMetrics` of the phase's
+    `create_metrics()`."""
+
+    def __init__(self, real=None):
+        self._real = real
 
     def __getattr__(self, name):
         if name.startswith("_"):
             raise AttributeError(name)
-        family = _Counter()
+        family = _Counter(None if self._real is None else getattr(self._real, name))
         setattr(self, name, family)
         return family
 
@@ -1711,11 +2008,14 @@ def offload_client(dev, smi, main, served, offloaded):
     pool serves), then healed (the client serves). Counts, replays and
     captures reset at the start; fails on a wrong verdict (other than the
     injected lie, which must be caught), a capture, an eager launch, or a
-    kernel no replay launched."""
+    kernel no replay launched. The clients' and the auditor's `metrics=` pass
+    their counts on to the `ResilienceMetrics` and `AuditMetrics` of one
+    `create_metrics()`, scraped at the end (`check_client_scrape`)."""
     import asyncio
     from collections import Counter
 
     from lodestar_tpu_torch import graphs
+    from lodestar_tpu_torch.metrics import create_metrics
     from lodestar_tpu_torch.chain.bls import (
         BlsDeviceVerifierPool,
         BlsSingleThreadVerifier,
@@ -1819,9 +2119,19 @@ def offload_client(dev, smi, main, served, offloaded):
         return time.perf_counter() - t0
 
     out = {}
+    phase_metrics = create_metrics()
+    client_metrics = []  # every client's ClientMetrics, in run order
+
+    def new_metrics():
+        m = ClientMetrics(phase_metrics.resilience)
+        client_metrics.append(m)
+        return m
+
+    audit_metrics = ClientMetrics(phase_metrics.audit)
+    audited = {}
 
     async def run_api():
-        inj, m = FaultInjector(seed=0), ClientMetrics()
+        inj, m = FaultInjector(seed=0), new_metrics()
         client = make_client(inj, metrics=m, class_deadlines={
             **CLASS_DEADLINE_S, PriorityClass.API: CLIENT_API_BUDGET_S})
         await settle(client, inj)
@@ -1851,7 +2161,7 @@ def offload_client(dev, smi, main, served, offloaded):
         out["api"] = run
 
     async def run_gossip(label, **kw):
-        inj, m = FaultInjector(seed=0), ClientMetrics()
+        inj, m = FaultInjector(seed=0), new_metrics()
         client = make_client(inj, metrics=m, **kw)
         await settle(client, inj)
         before = replays()
@@ -1883,7 +2193,7 @@ def offload_client(dev, smi, main, served, offloaded):
         out[label] = run
 
     async def run_fault():
-        inj, m = FaultInjector(seed=0), ClientMetrics()
+        inj, m = FaultInjector(seed=0), new_metrics()
         client = make_client(inj, metrics=m, class_deadlines={
             **CLASS_DEADLINE_S, PriorityClass.GOSSIP_ATTESTATION: CLIENT_FAULT_BUDGET_S})
         steps, verdicts = [], []
@@ -1948,10 +2258,10 @@ def offload_client(dev, smi, main, served, offloaded):
 
     async def run_audit():
         loop = asyncio.get_running_loop()
-        inj, m = FaultInjector(seed=0), ClientMetrics()
+        inj, m = FaultInjector(seed=0), new_metrics()
         aud = OffloadAuditor(sampler=AuditSampler(CLIENT_AUDIT_RATE, seed=CLIENT_AUDIT_SEED),
                              reference=cpu_oracle_reference, budget=1.0,
-                             quarantine_cooloff_s=None)
+                             quarantine_cooloff_s=None, metrics=audit_metrics)
         client = make_client(inj, metrics=m, auditor=aud)
         horizon = detection_horizon(CLIENT_AUDIT_RATE)
         before = replays()
@@ -2000,10 +2310,12 @@ def offload_client(dev, smi, main, served, offloaded):
             f"unquarantine_endpoint({B}) -> {lifted}: {states(client)[B]}; trust "
             f"{run['trust']}; replays {run['replays_by_class']}; {run['wall_s']:.3f} s on {smi}")
         await client.close()
+        audited.update(sampled=aud.sampled, audited=aud.audited,
+                       byzantine=len(aud.byzantine_events))
         out["audit"] = run
 
     async def run_degrade():
-        inj, m, fm = FaultInjector(seed=0), ClientMetrics(), FallbackMetrics()
+        inj, m, fm = FaultInjector(seed=0), new_metrics(), FallbackMetrics()
         client = make_client(inj, metrics=m)
         pool = BlsDeviceVerifierPool(mesh_mode="auto")
         deg = DegradingBlsVerifier([("offload", client), ("device", pool),
@@ -2049,6 +2361,9 @@ def offload_client(dev, smi, main, served, offloaded):
     asyncio.run(drive())
     for srv in servers.values():
         srv.stop()
+    host_a.metrics_server.stop()
+    out["scrape"] = check_client_scrape(smi, phase_metrics, client_metrics, audit_metrics,
+                                        audited)
     replayed = dict(graphs.REPLAYED)  # the client's run ends here
     if cache.captures != captures:
         fail(f"offload-client: {cache.captures - captures} graphs were captured")
@@ -2064,6 +2379,35 @@ def offload_client(dev, smi, main, served, offloaded):
     say(f"offload-client: no capture, no eager launch; Fp launches replayed {replayed}; phase "
         f"{out['phase_s']:.1f} s on {smi}")
     return out
+
+
+def check_client_scrape(smi, metrics, client_metrics, audit_metrics, audited):
+    """Phase 7c's scrape of the clients' `ResilienceMetrics` and the
+    auditor's `AuditMetrics` through a `MetricsServer` on 127.0.0.1: each
+    counter's total equals the sum of the counts the runs printed, and the
+    audit counters equal the auditor's own (sampled, audited, Byzantine
+    events). Returns the scrape's bytes and ms and the figures."""
+    s, n_bytes, ms = scrape_metrics(metrics)
+    names = {"routed": "lodestar_resilience_routed_total",
+             "failovers": "lodestar_resilience_failover_total",
+             "hedges": "lodestar_resilience_hedge_total",
+             "hedge_wins": "lodestar_resilience_hedge_win_total",
+             "shed": "lodestar_resilience_shed_total"}
+    printed = {k: sum(m.counts()[k] for m in client_metrics) for k in names}
+    got = {k: sample_sum(s, name) for k, name in names.items()}
+    audit_got = {"sampled": sample_sum(s, "lodestar_offload_audit_sampled_total"),
+                 "audited": sample_sum(s, "lodestar_offload_audit_verified_total"),
+                 "byzantine": sample_sum(s, "lodestar_offload_audit_byzantine_total")}
+    audit_counted = {"sampled": audit_metrics.sampled.total(),
+                     "audited": audit_metrics.verified.total(),
+                     "byzantine": audit_metrics.byzantine.total()}
+    say(f"offload-client: scrape of the clients' and the auditor's families through a "
+        f"MetricsServer on 127.0.0.1: {n_bytes} bytes in {ms:.2f} ms; resilience {got} (the "
+        f"runs' counts summed {printed}); audit {audit_got} (the auditor's {audited}) on {smi}")
+    if got != printed or audit_got != audited or audit_counted != audited or not got["routed"]:
+        fail(f"offload-client: the scrape {got}, {audit_got} disagrees with the phase's counts "
+             f"{printed}, {audited}")
+    return {"bytes": n_bytes, "ms": ms, "resilience": got, "audit": audit_got}
 
 
 # --- phase 7d ----------------------------------------------------------------
@@ -2339,21 +2683,62 @@ def htr_bound(pairs):
     return max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes"
 
 
-def host_root(chunks):
-    """Root of a complete tree of (N, 32) chunks with hashlib on the host."""
-    from lodestar_tpu_torch.ssz.hash import hash_nodes_cpu
+def host_root(chunks, native=False):
+    """Root of a complete tree of (N, 32) chunks on the host: with hashlib,
+    or with the host hasher `ssz.hash` routes to (`native=True`)."""
+    from lodestar_tpu_torch.ssz.hash import hash_nodes_cpu, hash_nodes_hashlib
 
+    hasher = hash_nodes_cpu if native else hash_nodes_hashlib
     level = chunks
     while level.shape[0] > 1:
-        level = hash_nodes_cpu(level)
+        level = hasher(level)
     return level[0].tobytes()
+
+
+def host_hasher_rates(chunks, expect, host_s, smi):
+    """The host hasher (`ssz.hash.hash_nodes_cpu`, native when built) on the
+    2^20-chunk tree and on one 2,047-pair level, the largest a state root
+    hashes on the host, beside hashlib's rate in the same run; the native
+    root must equal hashlib's."""
+    from lodestar_tpu_torch import native
+    from lodestar_tpu_torch.ssz.hash import hash_nodes_cpu, hash_nodes_hashlib
+
+    backend = native.sha256_backend()
+    if backend == "unavailable":
+        fail("htr: the native host hasher is unavailable")
+    n = chunks.shape[0]
+    t0 = time.perf_counter()
+    root = host_root(chunks, native=True)
+    tree_s = time.perf_counter() - t0
+    if root != expect:
+        fail("htr: the native host hasher's tree root differs from hashlib's")
+    level = chunks[:2 * 2047]
+    reps = {"native": 200, "hashlib": 5}
+    level_s = {}
+    for name, fn in (("native", hash_nodes_cpu), ("hashlib", hash_nodes_hashlib)):
+        t0 = time.perf_counter()
+        for _ in range(reps[name]):
+            out = fn(level)
+        level_s[name] = (time.perf_counter() - t0) / reps[name]
+        if out.tobytes() != hash_nodes_hashlib(level).tobytes():
+            fail(f"htr: the {name} host level differs from hashlib's")
+    rates = {"backend": backend, "tree_s": tree_s, "tree_pair_hashes_per_s": (n - 1) / tree_s,
+             "hashlib_tree_pair_hashes_per_s": (n - 1) / host_s,
+             "level_pairs": 2047,
+             "level_pair_hashes_per_s": {k: 2047 / v for k, v in level_s.items()}}
+    say(f"htr: (a) host hasher backend {backend}: tree {tree_s:.3f} s, {(n - 1) / tree_s:.4g} "
+        f"pair-hashes/s beside hashlib's {(n - 1) / host_s:.4g}/s (root == hashlib's); a "
+        f"2,047-pair host level {2047 / level_s['native']:.4g}/s beside hashlib's "
+        f"{2047 / level_s['hashlib']:.4g}/s; on {smi}")
+    return rates
 
 
 @contextlib.contextmanager
 def host_only_htr():
-    """Every hash on the host with hashlib, through the incremental state-root
-    tracker (mode "on" on the CPU, every level under the device floors);
-    fails if anything launched on a device meanwhile."""
+    """Every hash on the host (the host hasher `ssz.hash` routes to), through
+    the incremental state-root tracker (mode "on" on the CPU, every level
+    under the device floors); fails if anything launched on a device
+    meanwhile."""
     from lodestar_tpu_torch.ssz import device_htr as dh
     from lodestar_tpu_torch.ssz import hash as ssz_hash
 
@@ -2445,7 +2830,8 @@ def htr_tree(dev, smi):
     bound_ms, bound_by = htr_bound(n - 1)
     out = {"chunks": n, "first_s": first_s, "times_s": times, "pair_hashes_per_s": (n - 1) / mean,
            "replay_device_ms": dev_ms, "device_pair_hashes_per_s": (n - 1) / dev_ms * 1e3,
-           "bound_ms": bound_ms, "bound_by": bound_by, "hashlib_s": host_s, **graph_info(g)}
+           "bound_ms": bound_ms, "bound_by": bound_by, "hashlib_s": host_s, **graph_info(g),
+           "host_hasher": host_hasher_rates(chunks, expect, host_s, smi)}
     say(f"htr: (a) tree of {n} chunks == hashlib root; first call {first_s:.2f} s (eager "
         f"warm-up, capture {g.capture_s:.2f} s, instantiate {g.instantiate_s:.2f} s, one "
         f"replay); {g.nodes} nodes; pool {g.pool_bytes / 2**20:.1f} MiB")
@@ -2511,7 +2897,7 @@ def htr_state(dev, smi):
     as `epoch_htr_replay` fills it: a cold root, HTR_ROUNDS epoch-boundary
     rounds, HTR_ROUNDS slot-shaped rounds and one profiled epoch round,
     each root through `state_hash_tree_root` equal to a second tracker's on
-    the same state that hashes on the host only (hashlib, no launch)."""
+    the same state that hashes on the host only (no launch)."""
     import numpy as np
     import torch
 
@@ -5340,6 +5726,34 @@ def check_against_cpu(dev):
     say("check: pairing of 2 pairs on the card == CPU path limb for limb; bilinear; order r")
 
 
+def native_builds():
+    """The native host libraries' loaders (g++ builds into
+    `lodestar_tpu_torch/native/_build/` at their first call)."""
+    from lodestar_tpu_torch import native
+    from lodestar_tpu_torch.native import bls as native_bls
+
+    return [native.sha256_available, native_bls.available]
+
+
+def timed_build(load):
+    t0 = time.perf_counter()
+    return load(), time.perf_counter() - t0
+
+
+def native_report(natives):
+    """Fail unless both native libraries built, loaded and (the BLS one)
+    passed its self-test; print the hasher's backend and the build s."""
+    from lodestar_tpu_torch import native
+
+    (sha_ok, sha_s), (bls_ok, bls_s) = natives
+    if not sha_ok:
+        fail("the native SHA-256 library did not build or load")
+    if not bls_ok:
+        fail("the native BLS library did not build, load or pass its self-test")
+    say(f"build: native host libraries built and loaded: sha256_batch {sha_s:.1f} s (backend "
+        f"{native.sha256_backend()}), bls_host {bls_s:.1f} s (self-test passed), beside nvcc")
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--compare-parent", metavar="DIR",
@@ -5379,12 +5793,15 @@ def main():
         sources.append(os.path.join(args.compare_parent, SOURCE))
         if not os.path.exists(sources[1]):
             fail(f"no kernel source in the parent checkout at {sources[1]}")
-    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:  # one nvcc each
+    with concurrent.futures.ThreadPoolExecutor(len(sources) + 2) as pool:  # one compiler each
+        natives = [pool.submit(timed_build, build) for build in native_builds()]
         paths = list(pool.map(lambda src: fp_cuda.build(verbose=True, source=src), sources))
+        natives = [f.result() for f in natives]
     fp_cuda._load()
     parent = fp_cuda.load_library(paths[1]) if args.compare_parent else None
     phase_s["build"] = time.perf_counter() - t0
     say(f"build: fp kernels built and loaded in {phase_s['build']:.1f} s")
+    native_report(natives)
 
     # 3. kernels vs plain versions
     report = phase("kernels", check_kernels, dev)
@@ -5493,8 +5910,9 @@ def main():
         "device_events": single["device_events"], "nodes": g.nodes, "capture_s": g.capture_s,
         "instantiate_s": g.instantiate_s, "pool_bytes": g.pool_bytes,
         "fp_launches_per_replay": g.launches, "many_16x128_s": many_s}))
+    say("main: native prep " + json.dumps(main_run["native"]))
     say("serve: " + json.dumps({
-        "warm_s": served["warm_s"],
+        "warm_s": served["warm_s"], "scrape": served["scrape"],
         "per_class": {size: {k: v for k, v in c.items() if k != "launches"}
                       for size, c in served["per_class"].items()},
         "runs": served["runs"]}))

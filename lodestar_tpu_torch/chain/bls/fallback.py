@@ -2,7 +2,7 @@
 
 The PyTorch port's copy of ``lodestar_tpu/chain/bls/fallback.py``. The
 chain is explicit: the caller names its layers, every downgrade is
-counted (`metrics.fallback_*`, duck-typed) and traced (`bls_fallback`);
+counted (`metrics.fallback_*` of a `ResilienceMetrics`) and traced (`bls_fallback`);
 nothing in the port degrades on its own.
 
 The offload leg fails CLOSED — correct, but availability-hostile: with

@@ -4,7 +4,10 @@ The PyTorch port's copy of ``lodestar_tpu/chain/bls/pool.py``, with the
 same constants, pipeline modes, scheduler and admission controller; its
 default lanes run the port's device model (``models/batch_verify.py``) on
 CUDA, or on the device the caller names (`device=`). Its Prometheus
-wiring (scheduler and pipeline gauges) is not copied.
+wiring is the JAX pool's: `sched_metrics=` (a `SchedulerMetrics`) feeds
+the queue's families, the lane launch and wedge counters and the
+scrape-time occupancy, admission and lane gauges; `pipeline_metrics=` (a
+`BlsPipelineMetrics`) the pipeline's scrape-time gauges.
 
 Asyncio re-design of `BlsMultiThreadWorkerPool`
 (reference `beacon-node/src/chain/bls/multithread/index.ts:103`) with the
@@ -292,10 +295,12 @@ class BlsDeviceVerifierPool(IBlsVerifier):
         max_buffered_sigs: int = MAX_BUFFERED_SIGS,
         scheduler_enabled: bool = True,
         aging_ms: float | None = None,
+        sched_metrics=None,
         mesh: VerifierMesh | None = None,
         mesh_mode: str | None = None,
         pipeline: str = "auto",
         prep_fn: Callable | None = None,
+        pipeline_metrics=None,
         device=None,
     ) -> None:
         explicit_fn = verify_fn is not None
@@ -324,6 +329,15 @@ class BlsDeviceVerifierPool(IBlsVerifier):
                 wedge_threshold=DEVICE_WEDGE_THRESHOLD,
                 device=device,
             )
+        if not explicit_fn:
+            from ...models import batch_verify as bv
+
+            if bv.configure_device_prep() == "off":
+                # host prep pinned: build the native prep library off the
+                # hot path, so the first batch does not wait for g++
+                from ...native import bls as native_bls
+
+                native_bls.warm_up()
 
         # prep→verify double buffering: stage prep of package k+1 while
         # the lanes verify package k. "auto" engages only with a sibling
@@ -355,9 +369,27 @@ class BlsDeviceVerifierPool(IBlsVerifier):
         self._verify_runner: asyncio.Task | None = None  # guarded by: event-loop (single-threaded)
         self._overlap = _OverlapTracker()
         self._staged_packages = 0  # guarded by: advisory-only (monotonic count, prep threads under the GIL)
+        if pipeline_metrics is not None:
+            # scrape-time evaluation (the occupancy-gauge pattern): the
+            # previously process-trapped pipeline_stats() numbers become
+            # live lodestar_bls_pipeline_* gauges — overlap occupancy,
+            # staged packages, and the prep/verify busy accumulators
+            pipeline_metrics.overlap_occupancy_pct.set_function(
+                lambda: self.pipeline_stats()["overlap_occupancy_pct"]
+            )
+            pipeline_metrics.staged_packages.set_function(
+                lambda: self._staged_packages
+            )
+            pipeline_metrics.prep_seconds.set_function(
+                lambda: self._overlap.snapshot()["prep_ns"] / 1e9
+            )
+            pipeline_metrics.verify_seconds.set_function(
+                lambda: self._overlap.snapshot()["verify_ns"] / 1e9
+            )
 
         self.scheduler_enabled = scheduler_enabled
-        queue_kwargs = {"fifo": not scheduler_enabled}
+        self._sched_metrics = sched_metrics
+        queue_kwargs = {"fifo": not scheduler_enabled, "metrics": sched_metrics}
         if aging_ms is not None:
             queue_kwargs["aging_ms"] = aging_ms
         self._jobs: PriorityWorkQueue = PriorityWorkQueue(**queue_kwargs)
@@ -371,7 +403,20 @@ class BlsDeviceVerifierPool(IBlsVerifier):
             reject_depth=MAX_JOBS_CAN_ACCEPT_WORK,
             can_accept=lambda: not self._closed,
         )
-        self._outstanding = 0  # guarded by: event-loop (writers; depth_fn readers tolerate a stale int)
+        self._outstanding = 0  # guarded by: event-loop (writers; scrape-time depth_fn readers tolerate a stale int)
+        if sched_metrics is not None:
+            # scrape-time evaluation: the EWMA decays on read, so an idle
+            # pool reports decaying occupancy instead of freezing at the
+            # last launch's value
+            sched_metrics.occupancy_permille.set_function(
+                lambda: self.mesh.occupancy_permille()
+            )
+            sched_metrics.admission_state.set_function(lambda: int(self.admission.state()))
+            sched_metrics.mesh_lanes.set_function(lambda: len(self.mesh.available()))
+            for lane in self.mesh.lanes:
+                sched_metrics.lane_occupancy.labels(lane.label).set_function(
+                    lambda lane=lane: lane.occupancy.occupancy_permille()
+                )
         self._buffered: list[_Job] = []  # guarded by: event-loop (single-threaded)
         self._buffered_sigs = 0  # guarded by: event-loop (single-threaded)
         self._buffer_timer: asyncio.TimerHandle | None = None  # guarded by: event-loop (single-threaded)
@@ -903,6 +948,14 @@ class BlsDeviceVerifierPool(IBlsVerifier):
             "device lane wedged, degrading to remaining chips",
             {"device": lane.label, "lanes_left": len(self.mesh.available())},
         )
+        m = self._sched_metrics
+        if m is not None:
+            m.lane_wedge_trips.labels(lane.label).inc()
+
+    def _count_lane_launch(self, lane: MeshLane, mode: str) -> None:
+        m = self._sched_metrics
+        if m is not None:
+            m.lane_launches.labels(lane.label, mode).inc()
 
     def _launch_sets(
         self,
@@ -924,6 +977,7 @@ class BlsDeviceVerifierPool(IBlsVerifier):
             sets,
             prefer=lane,
             prepared=prepared,
+            on_launch=lambda l: self._count_lane_launch(l, "single"),
             on_wedge=self._on_lane_wedge,
         )
 
@@ -1072,6 +1126,7 @@ class BlsDeviceVerifierPool(IBlsVerifier):
             self.metrics["sharded_launches"] += 1
             for lane in lanes:
                 lane.launches += 1
+                self._count_lane_launch(lane, "sharded")
         except Exception:
             self.mesh.sharded_breaker.record_failure()
             self.metrics["sharded_fallbacks"] += 1

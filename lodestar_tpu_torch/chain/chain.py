@@ -40,7 +40,10 @@ from lodestar_tpu_torch.state_transition import (
     process_slots,
     state_hash_tree_root,
 )
-from lodestar_tpu_torch.state_transition.signature_sets import get_block_signature_sets
+from lodestar_tpu_torch.state_transition.signature_sets import (
+    SignatureSetError,
+    get_block_signature_sets,
+)
 from lodestar_tpu_torch.state_transition.util import effective_balances_array
 from lodestar_tpu_torch.types import ssz_types
 
@@ -433,7 +436,12 @@ class BeaconChain:
         # verification through the device pool (verifyBlock.ts:89-111)
         import asyncio
 
-        sets = get_block_signature_sets(work_state, signed_block, ctx, cfg=self.cfg)
+        try:
+            sets = get_block_signature_sets(work_state, signed_block, ctx, cfg=self.cfg)
+        except SignatureSetError as e:
+            # a signature no set can express (an empty sync aggregate that
+            # is not infinity): rejected before anything is stored
+            raise BlockError(BlockErrorCode.INVALID_SIGNATURES, str(e)) from e
 
         async def run_sigs():
             # own task: ensure_future snapshots the context, so the span

@@ -12,9 +12,11 @@ schedule and its single-launch path:
   messages go through the host byte stage of ``ops/prep.py`` (flag
   parsing, limb unpacking, SHA-256 expansion), then its three counted
   device stages (decompression, subgroup checks, hash-to-G2). Otherwise
-  (`prep="off"`, and "auto" on the CPU) the pure-Python oracle copies in
-  ``crypto/bls`` decode, check and hash on the host. A device-prep error
-  propagates: nothing falls back to the oracle.
+  (`prep="off"`, and "auto" on the CPU) the host decodes, checks and
+  hashes: the native C++ library of ``native/bls.py`` when it loads and
+  every message is 32 bytes, else the pure-Python oracle copies in
+  ``crypto/bls``. A device-prep error propagates: nothing falls back to
+  the host.
 * **Verify** (`device_batch_verify`): 64-bit blinded scalar
   multiplications in G1 and G2, the G2 fold to the aggregate signature,
   N+1 Miller loops in lockstep, one product fold, one final
@@ -59,7 +61,8 @@ schedule and its single-launch path:
   its caller names (the pool's `POOL_SIZE_CLASSES`) before it serves.
   Every prep leaves a record {layer, sets, start_ns, end_ns, rejected}
   for the calling thread (`consume_prep_info`) and adds to the process
-  counters `prep_counts`.
+  counters `prep_counts` and, once `configure_device_prep(metrics=)`
+  names them, to the lodestar_bls_prep_* families.
   A set whose fields cannot be read as bytes is a structural reject
   (False, zero dispatches), as a wrong-length encoding is: it is the
   input's fault, not the device's, so it must not charge a lane's
@@ -156,6 +159,7 @@ _prep_lock = threading.Lock()
 _prep_sets = dict.fromkeys(PREP_LAYERS, 0)  # guarded by: _prep_lock
 _prep_seconds = dict.fromkeys(PREP_LAYERS, 0.0)  # guarded by: _prep_lock
 _prep_rejected = 0  # batches rejected by prep or by the device's batch_valid; guarded by: _prep_lock
+_prep_metrics = None  # the lodestar_bls_prep_* families (`configure_device_prep(metrics=)`)
 
 
 def consume_prep_info():
@@ -176,12 +180,21 @@ def _note_prep(layer: str, n_sets: int, t0_ns: int, rejected: bool = False) -> N
         _prep_sets[layer] += n_sets
         _prep_seconds[layer] += (end_ns - t0_ns) / 1e9
         _prep_rejected += bool(rejected)
+    m = _prep_metrics
+    if m is not None:
+        m.sets.labels(layer).inc(n_sets)
+        m.seconds.labels(layer).observe((end_ns - t0_ns) / 1e9)
+        if rejected:
+            m.rejected.inc()
 
 
 def _note_rejected() -> None:
     global _prep_rejected
     with _prep_lock:
         _prep_rejected += 1
+    m = _prep_metrics
+    if m is not None:
+        m.rejected.inc()
 
 
 def prep_counts() -> dict:
@@ -283,14 +296,23 @@ PREP_MODES = ("auto", "on", "off")
 _prep_mode = "auto"
 
 
-def configure_device_prep(mode: str | None = None) -> str:
-    """Set the process-wide prep mode; returns the previous one."""
-    global _prep_mode
+def configure_device_prep(mode: str | None = None, metrics=None) -> str:
+    """Set the process-wide prep mode and/or the lodestar_bls_prep_* metric
+    family (a `BlsPrepMetrics`: `sets` and `seconds` by layer, `rejected`,
+    and `launches`, which the counted dispatch seam of ``ops/prep.py``
+    increments). Its `fallbacks` and `single_launch_fallbacks` counters
+    stay at zero: nothing here falls back. Returns the previous mode."""
+    global _prep_mode, _prep_metrics
     prev = _prep_mode
     if mode is not None:
         if mode not in PREP_MODES:
             raise ValueError(f"device prep mode must be one of {PREP_MODES}, got {mode!r}")
         _prep_mode = mode
+    if metrics is not None:
+        _prep_metrics = metrics
+        launches = getattr(metrics, "launches", None)
+        if launches is not None:
+            dp.configure_launch_counter(launches)
     return prev
 
 
@@ -340,15 +362,37 @@ def single_launch_active(mode: str | None = None, device=None, prep: str | None 
 
 
 def prepare_sets(sets: list[SignatureSet]):
-    """Host precompute with the pure-Python oracle: decode + validate +
-    hash. Returns ((pk_x, pk_y), (h_x, h_y), (sig_x, sig_y)) numpy limb
-    arrays, or None if any set is structurally invalid (decode failure,
-    non-subgroup point, infinity pubkey or signature)."""
+    """Host precompute: decode + validate + hash. Returns ((pk_x, pk_y),
+    (h_x, h_y), (sig_x, sig_y)) numpy limb arrays, or None if any set is
+    structurally invalid (decode failure, non-subgroup point, infinity
+    pubkey or signature).
+
+    Fast path, as in the JAX package: the native C++ library
+    (``native/bls_host.cpp``, threaded) does the whole decode, check and
+    hash pipeline when every message is 32 bytes and emits the same limbs.
+    A set that the loaded library rejects fails the batch at once. The
+    pure-Python oracle below is the fallback and the correctness anchor."""
     if not sets:
         return None
     raw = _set_bytes(sets)
     if raw is None:
         return None
+    if all(len(msg) == 32 for _, msg, _ in raw):
+        from ..native import bls as _nbls
+
+        native = _nbls.prepare_sets_native(
+            [pk for pk, _, _ in raw], [msg for _, msg, _ in raw], [sig for _, _, sig in raw]
+        )
+        if native is not None:
+            return native
+        if _nbls.available():
+            return None  # the native library loaded and rejected a set: fail fast
+    return prepare_sets_oracle(raw)
+
+
+def prepare_sets_oracle(raw):
+    """The pure-Python oracle's prep of (pubkey, message, signature) byte
+    triples, with `prepare_sets`' contract."""
     pk_pts, h_pts, sig_pts = [], [], []
     try:
         for pk_b, msg, sig_b in raw:

@@ -397,7 +397,7 @@ class OffloadAuditor:
         self.budget = max(0.001, min(1.0, budget))
         self.dump_dir = dump_dir
         self.quarantine_cooloff_s = quarantine_cooloff_s
-        self._metrics = metrics  # duck-typed audit metrics or None
+        self._metrics = metrics  # metrics.AuditMetrics or None
         self._queue: queue.Queue[AuditRecord] = queue.Queue(maxsize=queue_max)
         self._queue_max_bytes = max(1, queue_max_bytes)
         self._queue_bytes = 0  # guarded by: _lock — retained frame bytes

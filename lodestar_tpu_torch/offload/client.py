@@ -89,9 +89,10 @@ Departures from the JAX package's client:
     it. Transport errors are caught as `offload.transport_errors()`:
     the port's `TransportError` (the fault harness raises it), plus
     `grpc.RpcError` once grpc is imported.
-(f) `metrics=` stays duck-typed (None by default): the JAX package's
-    `ResilienceMetrics` needs `prometheus_client`, which the port does
-    not use.
+(f) `metrics=` (None by default) takes the `ResilienceMetrics` family
+    of ``lodestar_tpu_torch.metrics``, as the JAX client takes the JAX
+    package's; `prometheus_client` is imported only where that family's
+    registry is built.
 
 Deadlines in-process: on a socket the class deadline is gRPC's — a call
 past it raises DEADLINE_EXCEEDED at the client, which fails over or
@@ -343,8 +344,8 @@ class BlsOffloadClient(IBlsVerifier):
         self.max_outstanding = max_outstanding
         self.probe_interval_s = probe_interval_s
         self.log = get_logger(name="lodestar.offload.client")
-        # duck-typed resilience metrics (routed, failovers, hedges,
-        # hedge_wins, shed, breaker_state, breaker_transitions) or None
+        # metrics.ResilienceMetrics (routed, failovers, hedges, hedge_wins,
+        # shed, breaker_state, breaker_transitions) or None
         self._metrics = metrics
         # fault-injection seam (testing/faults.py): called as
         # wrapper(target, method_name, callable) -> callable around every

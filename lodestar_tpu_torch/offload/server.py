@@ -49,8 +49,12 @@ Departures from the JAX package's server:
     for the CPU oracle (`crypto.bls.api.verify_signature_sets`). The JAX
     server's oracle backend on a single-device `auto` and its swallowed
     ImportError of the model are not copied: both hide the device.
-(d) `--metrics-port` is not ported (it needs `prometheus_client`); the
-    constructor keeps its duck-typed `tenant_metrics=` argument.
+
+`--metrics-port` is the JAX server's: `build_server` registers the
+lodestar_offload_tenant_* families (`metrics.create_tenant_metrics`) on a
+registry of the host's own and starts a `metrics.MetricsServer` for them
+on that port; `server.metrics_server` holds it (None without the flag)
+and `main()` stops it with the host.
 """
 
 from __future__ import annotations
@@ -315,6 +319,7 @@ class BlsOffloadServer:
         self.host = host
         self.port = port
         self.mesh = None  # the served VerifierMesh, set by build_server
+        self.metrics_server = None  # the --metrics-port scrape server, set by build_server
 
     def _depth(self) -> int:
         """In-flight RPC count for admission/status — locked, so the
@@ -498,7 +503,9 @@ def build_server(argv=None) -> BlsOffloadServer:
     class the pool launches is captured on each lane (`POOL_SIZE_CLASSES`,
     8-1,024), so serving captures no graph for a frame of at most 1,024
     sets; they raise where CUDA is missing. `--bls-mesh off` serves the
-    CPU oracle. The mesh is `server.mesh` (None on the oracle)."""
+    CPU oracle. The mesh is `server.mesh` (None on the oracle).
+    `--metrics-port` starts the tenant families' scrape server here
+    (`server.metrics_server`; the caller stops it)."""
     import argparse
     import json
 
@@ -511,6 +518,10 @@ def build_server(argv=None) -> BlsOffloadServer:
     ap = argparse.ArgumentParser(prog="python -m lodestar_tpu_torch.offload.server")
     ap.add_argument("--port", type=int, default=50051)
     ap.add_argument("--workers", type=int, default=4)
+    ap.add_argument(
+        "--metrics-port", type=int, default=0,
+        help="serve lodestar_offload_tenant_* + a /metrics scrape here (0 = off)",
+    )
     ap.add_argument(
         "--bls-mesh", choices=["auto", "on", "off"], default="auto",
         help="serve the CUDA device mesh: one launch lane per GPU (auto and "
@@ -547,7 +558,8 @@ def build_server(argv=None) -> BlsOffloadServer:
     ap.add_argument(
         "--genesis-time", type=int, default=None,
         help="chain genesis timestamp (unix seconds): enables the per-tenant "
-        "slot-deadline slack observation at verdict time (tenant_metrics)",
+        "lodestar_offload_tenant_slack_seconds histogram: per-tenant "
+        "remaining slot-deadline slack at verdict time",
     )
     ap.add_argument(
         "--seconds-per-slot", type=int, default=12,
@@ -580,6 +592,16 @@ def build_server(argv=None) -> BlsOffloadServer:
             ok, _lane = mesh_launch(_mesh, sets)
             return ok
 
+    metrics_server = None
+    tenant_metrics = None
+    if args.metrics_port:
+        from ..metrics import MetricsServer, RegistryMetricCreator, create_tenant_metrics
+
+        creator = RegistryMetricCreator()
+        tenant_metrics = create_tenant_metrics(creator)
+        metrics_server = MetricsServer(creator, port=args.metrics_port)
+        metrics_server.start()
+
     deadline_model = None
     if args.genesis_time is not None:
         from ..slo import SlotDeadlineModel
@@ -604,8 +626,10 @@ def build_server(argv=None) -> BlsOffloadServer:
         tenant_reject_depth=args.tenant_reject_depth,
         chip_status_fn=chip_status_fn,
         deadline_model=deadline_model,
+        tenant_metrics=tenant_metrics,
     )
     server.mesh = mesh
+    server.metrics_server = metrics_server
     # surface the effective tenancy config once, for operators' logs
     server.log.info(
         "offload tenancy",
@@ -626,6 +650,8 @@ def main(argv=None) -> int:
     signal.signal(signal.SIGINT, lambda *a: stop.set())
     stop.wait()
     server.stop()
+    if server.metrics_server is not None:
+        server.metrics_server.stop()
     return 0
 
 

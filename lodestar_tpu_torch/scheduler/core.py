@@ -72,6 +72,10 @@ class PriorityWorkQueue:
     Items are opaque; the caller owns result futures / tracing parents.
     With `fifo=True` classes are ignored and arrival order rules — the
     pre-scheduler behavior, kept as the measurable control arm.
+
+    `metrics` (a `SchedulerMetrics` dataclass) is optional; when present
+    the queue maintains the `lodestar_sched_queue_*` families itself so
+    every consumer (BLS pool today) reports identically.
     """
 
     def __init__(
@@ -80,9 +84,11 @@ class PriorityWorkQueue:
         weights: dict[PriorityClass, int] | None = None,
         aging_ms: float = DEFAULT_AGING_MS,
         fifo: bool = False,
+        metrics=None,
         time_fn=time.monotonic_ns,
     ) -> None:
         self.fifo = fifo
+        self.metrics = metrics
         self._time_fn = time_fn
         self._aging_ns = aging_ms * 1e6
         w = dict(DEFAULT_WEIGHTS)
@@ -112,6 +118,8 @@ class PriorityWorkQueue:
         q.append((item, self._time_fn()))
         self._size += 1
         self._event.set()
+        if self.metrics is not None:
+            self.metrics.queue_depth.labels(cls.label).set(len(q))
 
     # -- egress ----------------------------------------------------------------
 
@@ -135,6 +143,8 @@ class PriorityWorkQueue:
             if chosen is not fair:
                 self._last_was_promotion = True
                 self.starvation_promotions += 1
+                if self.metrics is not None:
+                    self.metrics.starvation_promotions.inc()
                 return chosen
         self._last_was_promotion = False
         return fair
@@ -162,6 +172,10 @@ class PriorityWorkQueue:
             self._pass[cls] += self._strides[cls]
             self._vtime = max(self._vtime, self._pass[cls])
         waited_ns = max(0, self._time_fn() - enq_ns)
+        if self.metrics is not None:
+            self.metrics.queue_depth.labels(cls.label).set(len(self._queues[cls]))
+            self.metrics.queue_wait.labels(cls.label).observe(waited_ns / 1e9)
+            self.metrics.jobs_dequeued.labels(cls.label).inc()
         return item, cls, waited_ns
 
     async def get(self) -> tuple[object, PriorityClass, int]:
@@ -197,7 +211,7 @@ class PriorityWorkQueue:
         return {c.label: len(self._queues[c]) for c in PriorityClass}
 
     def stats(self) -> dict:
-        """One-shot scheduler snapshot (debug):
+        """One-shot scheduler snapshot (chaos-harness ledger / debug):
         per-class depths plus the fairness counters that summarize how
         contended the queue has been so far."""
         return {

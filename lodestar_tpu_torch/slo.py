@@ -6,7 +6,9 @@ pool calls: `SlotDeadlineModel` (per-priority-class deadlines anchored at
 the chain's ``genesis_time``: a gossip block by 1/3 slot, a gossip
 attestation by 2/3 slot, an API submission by the end of the slot,
 multi-slot budgets for sync and backfill), the process-global accountant
-(`configure_slo` / `reset_slo` and the `job_*` lifecycle hooks) and its
+(`configure_slo` / `reset_slo` and the `job_*` lifecycle hooks, which
+also stamp each job's slack at enqueue, dispatch and verdict into the
+``lodestar_slo_*`` families when `configure_slo(metrics=)` names them) and its
 `wait_budget` profile, which splits each job's life into four legs (buffer
 wait, queue wait, staging, device launch) from its own monotonic stamps;
 and the chain's span and dump helpers (`slack_ms`, `debug_view`,
@@ -159,6 +161,7 @@ class _SloAccountant:
     def __init__(self) -> None:
         self.model: SlotDeadlineModel | None = None
         self.slack_floor_s = 0.0
+        self.metrics = None  # SloMetrics | None
         # injectable monotonic source, so a caller on virtual time can
         # stamp job legs on it
         self.monotonic_ns: Callable[[], int] = time.monotonic_ns
@@ -172,6 +175,10 @@ class _SloAccountant:
         self._good: dict[PriorityClass, int] = {c: 0 for c in PriorityClass}
         self._total: dict[PriorityClass, int] = {c: 0 for c in PriorityClass}
         self._miss: dict[PriorityClass, int] = {c: 0 for c in PriorityClass}
+
+    def observe_slack(self, cls: PriorityClass, stage: str, slack_s: float) -> None:
+        if self.metrics is not None:
+            self.metrics.slack_seconds.labels(cls.label, stage).observe(slack_s)
 
     def _ring(self, table: dict, key) -> deque:
         ring = table.get(key)
@@ -205,6 +212,14 @@ class _SloAccountant:
                 self._good[cls] += 1
             if not met:
                 self._miss[cls] += 1
+        m = self.metrics
+        if m is not None:
+            m.slack_seconds.labels(cls.label, "verdict").observe(slack_s)
+            m.sli_total.labels(cls.label).inc()
+            if ok and met:
+                m.sli_good.labels(cls.label).inc()
+            if not met:
+                m.deadline_miss.labels(cls.label).inc()
 
     # -- read side ------------------------------------------------------------
 
@@ -303,9 +318,11 @@ def configure_slo(
     slack_floor_ms: float = 0.0,
     time_fn: Callable[[], float] = time.time,
     monotonic_ns_fn: Callable[[], int] = time.monotonic_ns,
+    metrics=None,
 ) -> None:
-    """(Re)configure the process-global accountant. Disabled or
-    genesis-less: every job hook degrades to a single None
+    """(Re)configure the process-global accountant. `metrics` is a
+    `SloMetrics` dataclass (or None to keep slack accounting local).
+    Disabled or genesis-less: every job hook degrades to a single None
     check. `monotonic_ns_fn` pairs with `time_fn` when the caller runs
     on virtual time: wall-clock deadlines and job-leg
     stamps must advance together or leg durations go negative."""
@@ -320,11 +337,13 @@ def configure_slo(
         _ACCT.model = None
     _ACCT.slack_floor_s = slack_floor_ms / 1000.0
     _ACCT.monotonic_ns = monotonic_ns_fn
+    _ACCT.metrics = metrics
 
 
 def reset_slo() -> None:
-    """Test isolation: drop the model and all rings."""
+    """Test isolation: drop the model, metrics binding, and all rings."""
     _ACCT.model = None
+    _ACCT.metrics = None
     _ACCT.slack_floor_s = 0.0
     _ACCT.monotonic_ns = time.monotonic_ns
     with _ACCT._lock:
@@ -346,14 +365,17 @@ def slo_active() -> bool:
 
 def job_begin(priority: PriorityClass, slot: int | None = None) -> JobSlo | None:
     """Called at enqueue. Freezes the job's absolute deadline (anchored
-    at the subject `slot` when the caller knows it). Returns None when the accountant is inactive —
+    at the subject `slot` when the caller knows it) and records the
+    enqueue-stage slack. Returns None when the accountant is inactive —
     the None is the whole disabled-path cost."""
     model = _ACCT.model
     if model is None:
         return None
     cls = PriorityClass(priority)
     deadline = model.deadline_for(cls, slot)
-    return JobSlo(cls, slot, deadline, _ACCT.monotonic_ns())
+    js = JobSlo(cls, slot, deadline, _ACCT.monotonic_ns())
+    _ACCT.observe_slack(cls, "enqueue", deadline - model.now())
+    return js
 
 
 def job_flushed(js: JobSlo | None) -> None:
@@ -363,11 +385,14 @@ def job_flushed(js: JobSlo | None) -> None:
 
 
 def job_dequeued(js: JobSlo | None, waited_ns: int = 0) -> None:
-    """Scheduler handed the job to a worker."""
+    """Scheduler handed the job to a worker: dispatch-stage slack."""
     if js is None:
         return
     js.t_dequeue_ns = _ACCT.monotonic_ns()
     js.queue_wait_ns = waited_ns
+    model = _ACCT.model
+    if model is not None:
+        _ACCT.observe_slack(js.cls, "dispatch", js.deadline_s - model.now())
 
 
 def job_launch(js: JobSlo | None) -> None:

@@ -1,11 +1,12 @@
-"""Hashing backend for SSZ merkleization: `hashlib` for small levels, the
+"""Hashing backend for SSZ merkleization: the host for small levels, the
 device for large ones.
 
 The port of `lodestar_tpu.ssz.hash`, with the same routing rule: a single
 64-byte digest is far cheaper on the host than a device round trip, so
 only levels with at least `DEVICE_MIN_PAIRS` pairs go to the device (the
-HTR device of `ssz.device_htr`). The host hasher is `hashlib` alone; the
-JAX package's native C++ batch hasher is not ported yet.
+HTR device of `ssz.device_htr`). On the host, levels of two or more pairs
+go to the native C++ batch hasher (`lodestar_tpu_torch.native`) when it
+builds and loads, and to `hashlib` otherwise, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -20,9 +21,39 @@ import numpy as np
 DEVICE_MIN_PAIRS = int(os.environ.get("LODESTAR_TPU_HASH_MIN_PAIRS", "2048"))
 
 
+# The C++ batch hasher (SHA-NI / threaded) removes the per-pair Python
+# overhead; probed once, None if the toolchain or the build is absent.
+_native_hash_pairs = None
+_native_probed = False
+
+
+def _native():
+    global _native_hash_pairs, _native_probed
+    if not _native_probed:
+        _native_probed = True
+        try:
+            from lodestar_tpu_torch import native
+
+            if native.sha256_available():
+                _native_hash_pairs = native.hash_pairs
+        except Exception:
+            _native_hash_pairs = None
+    return _native_hash_pairs
+
+
 def hash_nodes_cpu(data: np.ndarray) -> np.ndarray:
-    """Hash adjacent 32-byte node pairs on the host with hashlib.
-    data: (2N, 32) uint8 -> (N, 32) uint8."""
+    """Hash adjacent 32-byte node pairs on the host. data: (2N, 32) uint8
+    -> (N, 32) uint8. The native batch hasher from 4 rows up when it is
+    built, else a hashlib loop."""
+    fn = _native()
+    if fn is not None and data.shape[0] >= 4:
+        return fn(data)
+    return hash_nodes_hashlib(data)
+
+
+def hash_nodes_hashlib(data: np.ndarray) -> np.ndarray:
+    """Hash adjacent 32-byte node pairs with a hashlib loop (the host
+    hasher without the native library)."""
     n = data.shape[0] // 2
     buf = data.tobytes()  # single copy
     sha = hashlib.sha256

@@ -20,7 +20,11 @@ from Capella on one set per BLS-to-execution change
 (`bls_to_execution_change_signature_set`). The JAX package builds neither,
 so a chain that verifies through the sets and runs the transition with
 `verify_signatures=False` (both packages' `BeaconChain`) never checks them
-there; the port's chain does.
+there; the port's chain does. As in Lodestar, an aggregate with no
+participant must carry the point at infinity: any other signature raises
+`SignatureSetError` ("Empty sync committee signature is not infinity"),
+which the port's chain turns into an INVALID_SIGNATURES rejection. The
+JAX transition refuses such a block only with `verify_signatures=True`.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ import hashlib
 
 from lodestar_tpu_torch import ssz, tracing
 from lodestar_tpu_torch.config import compute_domain
-from lodestar_tpu_torch.crypto.bls.api import SignatureSet, aggregate_pubkeys
+from lodestar_tpu_torch.crypto.bls.api import G2_INFINITY, SignatureSet, aggregate_pubkeys
 from lodestar_tpu_torch.params import (
     DOMAIN_BEACON_ATTESTER,
     DOMAIN_BEACON_PROPOSER,
@@ -57,6 +61,7 @@ __all__ = [
     "sync_committee_signature_set",
     "bls_to_execution_change_signature_set",
     "get_block_signature_sets",
+    "SignatureSetError",
 ]
 
 
@@ -132,16 +137,24 @@ def voluntary_exit_signature_set(state, signed_exit, ctx: EpochContext) -> Signa
     )
 
 
+class SignatureSetError(ValueError):
+    """A block's signature field that no set can express (Lodestar throws
+    from its signature-set producers for these)."""
+
+
 def sync_committee_signature_set(state, sync_aggregate, ctx: EpochContext) -> SignatureSet | None:
     """The sync aggregate's set (reference `getSyncCommitteeSignatureSet`,
     `signatureSets/syncCommittee.ts`): its participants' pubkeys aggregated
     on the host, over the previous slot's block root under
     DOMAIN_SYNC_COMMITTEE at that slot's epoch, as `process_sync_aggregate`
-    checks it. None when no member participates (the empty aggregate's
-    infinity signature needs no pairing)."""
+    checks it. None when no member participates and the signature is the
+    point at infinity (it needs no pairing); an empty aggregate with any
+    other signature raises `SignatureSetError`."""
     bits = list(sync_aggregate.sync_committee_bits)
     pubkeys = [bytes(pk) for pk, bit in zip(state.current_sync_committee.pubkeys, bits) if bit]
     if not pubkeys:
+        if bytes(sync_aggregate.sync_committee_signature) != G2_INFINITY:
+            raise SignatureSetError("Empty sync committee signature is not infinity")
         return None
     previous_slot = max(int(state.slot), 1) - 1
     domain = get_domain(

@@ -17,9 +17,12 @@ a first-call flag per (program, size class).
 
 Mode (process-global): "auto" records once a metrics sink is installed,
 "on" records without one (a bounded in-process ledger and counters; tests
-and scripts), "off" records nothing. The port has no metrics module yet,
-so a sink is whatever object with the ``launch_seconds`` and
-``compile_*`` families a caller installs.
+and scripts), "off" records nothing. The sink is the
+``DeviceLaunchMetrics`` family of ``lodestar_tpu_torch.metrics``
+(`configure_launch_telemetry(metrics=create_metrics().device_launch)`):
+``lodestar_device_launch_seconds{program,size_class}``,
+``lodestar_device_compile_seconds_total`` and
+``lodestar_device_compile_{hits,misses}_total{program}``.
 """
 
 from __future__ import annotations

@@ -20,7 +20,13 @@ payload. `traced` is the decorator form of `span` (the state transition's
 signature-set producer wears it). A slow trace is also written as a Chrome
 `trace_event` JSON file into `export_dir` when one is set, with its
 retention (`export.prune_export_dir`), as in the JAX package. The metric
-bridge of the JAX package is not copied (it comes with a metrics module).
+bridge is the JAX package's: a tracer given a `TraceMetrics` (`metrics=`,
+from ``lodestar_tpu_torch.metrics``) feeds every completed trace's spans
+into the lodestar_trace_* families and counts its slow slots; a slow-slot
+dump also carries the event loop's last lag sample (`lag_ms_supplier`,
+`metrics.monitoring.EventLoopLagSampler.last_lag_ms`) and the slot's
+device launches (`launches_supplier`, `telemetry.slow_slot_launches`)
+when they are configured.
 """
 
 from __future__ import annotations
@@ -245,7 +251,8 @@ class Tracer:
 
     def __init__(self, *, enabled: bool = False, slow_slot_ms: float = 2000.0,
                  export_dir: str | None = None, export_max_files: int | None = 256,
-                 export_max_age_s: float | None = None, ring_size: int = 64):
+                 export_max_age_s: float | None = None, ring_size: int = 64,
+                 metrics=None, lag_ms_supplier=None, launches_supplier=None):
         self.enabled = enabled
         self.slow_slot_ms = slow_slot_ms
         self.export_dir = export_dir
@@ -254,6 +261,12 @@ class Tracer:
         self.export_max_files = export_max_files
         self.export_max_age_s = export_max_age_s
         self.ring: deque[Trace] = deque(maxlen=ring_size)
+        self.metrics = metrics  # metrics.TraceMetrics or None
+        # () -> float|None: last event-loop lag sample in ms, surfaced in
+        # slow-slot dumps (EventLoopLagSampler wires itself in here)
+        self.lag_ms_supplier = lag_ms_supplier
+        # () -> list|None: the slot's device launches (telemetry ledger)
+        self.launches_supplier = launches_supplier
         self.slow_slot_dumps = 0
         self.last_slow_dump: dict | None = None
         self._lock = threading.Lock()
@@ -325,6 +338,18 @@ class Tracer:
         trace.end_ns = trace.root.end_ns if trace.root is not None else time.monotonic_ns()
         with self._lock:
             self.ring.append(trace)
+        m = self.metrics
+        if m is not None:
+            try:
+                m.traces_completed.inc()
+                if not trace.bulk:
+                    m.block_pipeline_time.observe(trace.duration_ms / 1000.0)
+                for s in trace.spans:
+                    m.span_duration.labels(span=s.name).observe(
+                        max(0.0, s.duration_ms / 1000.0)
+                    )
+            except Exception:
+                pass  # metric bridge must never break the pipeline
         if trace.duration_ms > self.slow_slot_ms and not trace.bulk:
             self._dump_slow(trace)
 
@@ -341,9 +366,31 @@ class Tracer:
             "critical_path": path_str,
             "spans": len(trace.spans),
         }
+        if self.lag_ms_supplier is not None:
+            # loop starvation vs device slowness: the lag sample says which
+            try:
+                lag_ms = self.lag_ms_supplier()
+                if lag_ms is not None:
+                    info["event_loop_lag_ms"] = round(lag_ms, 3)
+            except Exception:
+                pass  # the dump must never fail on an optional probe
+        if self.launches_supplier is not None:
+            # the slot's device launches (program/size/wall/first call):
+            # a first-call stall vs a dispatch storm is readable from the dump
+            try:
+                launches = self.launches_supplier()
+                if launches is not None:
+                    info["device_launches"] = launches
+            except Exception:
+                pass  # the dump must never fail on an optional probe
         with self._lock:
             self.slow_slot_dumps += 1
             self.last_slow_dump = info
+        if self.metrics is not None:
+            try:
+                self.metrics.slow_slots.inc()
+            except Exception:
+                pass
         if self._log is None:
             from ..logger import get_logger
 
@@ -398,6 +445,9 @@ def configure(
     export_max_files: int | None = None,
     export_max_age_s: float | None = None,
     ring_size: int | None = None,
+    metrics=None,
+    lag_ms_supplier=None,
+    launches_supplier=None,
 ) -> Tracer:
     """Mutate the global tracer in place (callers hold no stale refs)."""
     t = _TRACER
@@ -414,6 +464,12 @@ def configure(
     if ring_size is not None:
         with t._lock:
             t.ring = deque(t.ring, maxlen=ring_size)
+    if metrics is not None:
+        t.metrics = metrics
+    if lag_ms_supplier is not None:
+        t.lag_ms_supplier = lag_ms_supplier
+    if launches_supplier is not None:
+        t.launches_supplier = launches_supplier
     return t
 
 

@@ -24,6 +24,12 @@ bytes:
 * the port's set list for it is the JAX list plus the sync-committee set,
   then the BLS change's set, last, each equal to the set the spec's check
   verifies; a block whose aggregate has no participant adds no set.
+
+And the repair of an empty sync aggregate whose signature is not the point
+at infinity (Lodestar's "Empty sync committee signature is not infinity"):
+the JAX transition with `verify_signatures=True` refuses the block, the
+JAX `BeaconChain` imports it, and the port's chain rejects it
+INVALID_SIGNATURES, storing nothing.
 """
 
 from __future__ import annotations
@@ -252,3 +258,80 @@ def test_the_ports_sets_are_the_jax_sets_plus_the_new_ones_last():
     assert bls.verify_signature_sets([bls.SignatureSet(*tsets[-1])])
     _, _, bad = _sets(t, "capella", gbytes, forged, 9, _capella_cfg(t))
     assert not bls.verify_signature_sets([bls.SignatureSet(*bad[-1])])
+
+
+@functools.lru_cache(maxsize=None)
+def empty_aggregate_block():
+    """(genesis bytes, the JAX chain's valid slot-1 Altair block with its
+    sync aggregate emptied and its signature left as it was: not infinity),
+    state root and proposer signature made anew."""
+    from lodestar_tpu.state_transition import EpochContext, process_block, process_slots
+    from lodestar_tpu.state_transition.genesis import interop_secret_keys
+
+    j = pkg(J)
+    gbytes, bbytes = chain_bytes()
+    work = j.t.altair.BeaconState.deserialize(gbytes)
+    process_slots(work, 1, j.p, j.cfg())
+    block = j.t.altair.SignedBeaconBlock.deserialize(bbytes[0])
+    agg = block.message.body.sync_aggregate
+    agg.sync_committee_bits = [False] * len(list(agg.sync_committee_bits))
+    post = work.copy()
+    process_block(post, block.message, EpochContext(post, j.p), verify_signatures=False)
+    block.message.state_root = post.type.hash_tree_root(post)
+    signed = _resign(j, block, interop_secret_keys(16), work)
+    return gbytes, signed.type.serialize(signed)
+
+
+def test_empty_sync_aggregate_not_infinity_is_rejected_by_the_port():
+    from lodestar_tpu.crypto.bls.api import G2_INFINITY
+    from lodestar_tpu.state_transition import (
+        BlockProcessError,
+        EpochContext,
+        process_block,
+        process_slots,
+    )
+    from lodestar_tpu_torch.chain.bls import BlsDeviceVerifierPool
+    from lodestar_tpu_torch.state_transition import signature_sets as tss
+
+    j, t = pkg(J), pkg(T)
+    gbytes, raw = empty_aggregate_block()
+    block = j.t.altair.SignedBeaconBlock.deserialize(raw)
+    assert not any(block.message.body.sync_aggregate.sync_committee_bits)
+    assert bytes(block.message.body.sync_aggregate.sync_committee_signature) != G2_INFINITY
+    # the JAX transition refuses it when it checks signatures, and not without
+    work = j.t.altair.BeaconState.deserialize(gbytes)
+    process_slots(work, 1, j.p, j.cfg())
+    with pytest.raises(BlockProcessError, match="sync aggregate"):
+        process_block(work.copy(), block.message, EpochContext(work, j.p), verify_signatures=True)
+    process_block(work.copy(), block.message, EpochContext(work, j.p), verify_signatures=False)
+    # the JAX chain imports it (its transition runs without signatures)
+    jax_out = _import(j, "altair", gbytes, [raw], j.bls.BlsSingleThreadVerifier(), j.cfg(), 1)
+    assert jax_out[0] == ["imported"]
+    # the port's set producer throws as Lodestar's does
+    with pytest.raises(tss.SignatureSetError, match="Empty sync committee signature is not infinity"):
+        _sets(t, "altair", gbytes, raw, 1, t.cfg())
+    # the port's chain rejects it on its oracle and on the pool, head unmoved
+    genesis_only = _import(t, "altair", gbytes, [], t.bls.BlsSingleThreadVerifier(), t.cfg(), 1)
+    for verifier in (t.bls.BlsSingleThreadVerifier(), BlsDeviceVerifierPool(device="cpu")):
+        got = _import(t, "altair", gbytes, [raw], verifier, t.cfg(), 1)
+        assert got == (["INVALID_SIGNATURES"],) + genesis_only[1:]
+
+
+def test_empty_sync_aggregate_with_infinity_adds_no_set():
+    """The same empty aggregate with the infinity signature: no set, and the
+    port's list is the JAX list."""
+    from lodestar_tpu.crypto.bls.api import G2_INFINITY
+    from lodestar_tpu.state_transition import process_slots
+    from lodestar_tpu.state_transition.genesis import interop_secret_keys
+
+    j, t = pkg(J), pkg(T)
+    gbytes, raw = empty_aggregate_block()
+    block = j.t.altair.SignedBeaconBlock.deserialize(raw)
+    block.message.body.sync_aggregate.sync_committee_signature = G2_INFINITY
+    work = j.t.altair.BeaconState.deserialize(gbytes)
+    process_slots(work, 1, j.p, j.cfg())
+    block = _resign(j, block, interop_secret_keys(16), work)
+    raw = block.type.serialize(block)
+    _, _, jsets = _sets(j, "altair", gbytes, raw, 1, j.cfg())
+    _, _, tsets = _sets(t, "altair", gbytes, raw, 1, t.cfg())
+    assert tsets == jsets and len(tsets) == 2

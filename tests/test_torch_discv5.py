@@ -12,7 +12,7 @@ the packages mixed (seeded keys: a node in a distance band the bootstrap
 asks for is found, one outside them is not), and junk datagrams ignored. The subnet-aware ordering of
 ENRs by `attnets` (`Libp2pBeaconNetwork.enr_has_attnet`), and the subnets
 and discovery scenarios of `tests/network/test_subnets_discovery_builder.py`
-(the builder test's `execution` is not ported): the attnets lifecycle under
+(its builder test runs in `tests/test_torch_execution.py`): the attnets lifecycle under
 one seeded `random.Random`, syncnets with the metadata sequence, and
 subnet-matched dialing, each event log equal between the packages.
 """

@@ -1,9 +1,10 @@
 """Import hygiene of the PyTorch/CUDA port.
 
 * Every module of `lodestar_tpu_torch` imports in a fresh interpreter where
-  `jax`, `lodestar_tpu` and `grpc` cannot be imported, and importing builds and
-  loads no kernel, builds no graph (HTR graphs included), makes no SHA-256
-  constant a tensor and initializes no CUDA context.
+  `jax`, `lodestar_tpu`, `grpc`, `yaml` and `prometheus_client` cannot be
+  imported, and importing builds and loads no kernel and no native host
+  library, starts no thread, builds no graph (HTR graphs included), makes no
+  SHA-256 constant a tensor and initializes no CUDA context.
 * No module of the port, and not `chip_smoke.py`, imports `jax` or
   `lodestar_tpu` (checked on the syntax tree; the top-level name is
   compared exactly, since `lodestar_tpu_torch` starts with the same
@@ -33,6 +34,9 @@ sys.modules["jax"] = None           # any `import jax` now raises ImportError
 sys.modules["lodestar_tpu"] = None  # and so does any import of the JAX package
 sys.modules["grpc"] = None          # and grpc: the offload host imports without it
 sys.modules["yaml"] = None          # and PyYAML: spec_test reads .yaml only when a case has one
+sys.modules["prometheus_client"] = None  # and the metrics registry's library: built at first use
+import threading
+threads_before = threading.active_count()
 import lodestar_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(lodestar_tpu_torch.__path__, "lodestar_tpu_torch.")]
 for name in names:
@@ -57,6 +61,14 @@ assert not kzg._MSM_GRAPHS.graphs and not kzg._PAIRING_GRAPHS.graphs, \
 assert kzg._points_on.cache_info().currsize == 0, "the KZG setup was put on a device at import"
 assert kzg.load_trusted_setup.cache_info().currsize == 0, "the KZG setup was parsed at import"
 assert not torch.cuda.is_initialized(), "CUDA was initialized at import"
+from lodestar_tpu_torch import native
+from lodestar_tpu_torch.native import bls as native_bls
+from lodestar_tpu_torch.ssz import hash as ssz_hash
+assert native._lib is None and not native._load_failed, "the SHA-256 library was loaded at import"
+assert native_bls._lib is None and not native_bls._load_failed, "the BLS library was loaded at import"
+assert native_bls._warm_thread is None, "the BLS warm-up started at import"
+assert not ssz_hash._native_probed, "the host hasher was probed at import"
+assert threading.active_count() == threads_before, "a thread was started at import"
 print("imported", len(names))
 """
 
@@ -84,8 +96,10 @@ def test_every_module_imports_without_jax():
     # and its mpt, network.transport and its identity, multistream, noise, mplex
     # and host, network's gossipsub, discv5, discovery, subnets and service; and
     # ssz.json, light_client and its client, chain.light_client_server,
-    # testing.fleet and tracing.export
-    assert "imported" in proc.stdout and int(proc.stdout.split()[-1]) >= 118
+    # testing.fleet and tracing.export; and metrics and its monitoring and
+    # validator_monitor, native and its bls, execution and its engine, eth1,
+    # eth1_tracker and builder
+    assert "imported" in proc.stdout and int(proc.stdout.split()[-1]) >= 128
 
 
 def _imported_top_levels(path):
@@ -134,7 +148,11 @@ def test_no_module_imports_jax_or_the_jax_package():
     assert len(p2p) == 13
     light = {"ssz/json.py", "light_client/__init__.py", "light_client/client.py",
              "chain/light_client_server.py", "testing/fleet.py", "tracing/export.py"}
-    assert serving | htr | kzg | offload | sharded | stf | chain | network | p2p | light <= {
+    host = {"metrics/__init__.py", "metrics/monitoring.py", "metrics/validator_monitor.py",
+            "native/__init__.py", "native/bls.py", "execution/__init__.py",
+            "execution/engine.py", "execution/eth1.py", "execution/eth1_tracker.py",
+            "execution/builder.py"}
+    assert serving | htr | kzg | offload | sharded | stf | chain | network | p2p | light | host <= {
         str(f.relative_to(PORT)) for f in files if PORT in f.parents}
     bad = [
         f"{f.relative_to(REPO)}:{line} imports {name}"

@@ -21,8 +21,9 @@
   the lane's breaker.
 * The departures: the server module imports and serves in-process without
   grpc, where `start()` raises ImportError; `build_server` with
-  `--bls-mesh auto`/`on` raises without CUDA, `off` serves the oracle, and
-  `--metrics-port` is not a flag.
+  `--bls-mesh auto`/`on` raises without CUDA, `off` serves the oracle.
+  `--metrics-port` is no longer a departure: it starts the tenant
+  families' scrape server, as in the JAX package's `main()`.
 * Over a real gRPC socket: the JAX package's `BlsOffloadClient` against
   the port's started server (valid True, tampered False, tenant trailer
   accounting, a quota shed arriving as `OffloadShed` with the endpoint's
@@ -1087,9 +1088,28 @@ def test_build_server_off_serves_the_oracle(real_sets, _restore_single_launch):
 
 
 def test_build_server_has_no_metrics_port_flag(capsys):
-    with pytest.raises(SystemExit):
-        t_srv.build_server(["--bls-mesh", "off", "--metrics-port", "9100"])
-    assert "--metrics-port" in capsys.readouterr().err
+    """Departure (d) is closed: `--metrics-port` is a flag of the port's
+    host, as of the JAX package's. It starts a scrape server of the tenant
+    families on that port (`server.metrics_server`); without it, none."""
+    import socket
+    import urllib.request
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    server = t_srv.build_server(["--bls-mesh", "off", "--metrics-port", str(port)])
+    try:
+        assert server.metrics_server is not None and server.metrics_server.port == port
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=10) as resp:
+            body = resp.read().decode()
+        assert "lodestar_offload_tenant_served_sets_total" in body
+    finally:
+        server.stop()
+        server.metrics_server.stop()
+    assert "--metrics-port" not in capsys.readouterr().err
+    plain = t_srv.build_server(["--bls-mesh", "off"])
+    assert plain.metrics_server is None
+    plain.stop()
 
 
 # -- over a real gRPC socket: the JAX client against the port's server ----------------
