@@ -341,6 +341,32 @@ Phases, in order; any failure exits non-zero and prints no result:
             finalized header still 73's), an update with one signature byte
             changed refused; bootstrap s, each validation's s, bytes on the
             wire; no replay. No graph captured. Lines start `lightclient:`.
+10f. rest   a validator client over the port's Beacon REST API on phase
+            10e's chain (`rest_run`): an event loop on a thread attached as
+            `chain.loop`, a fresh `BlsDeviceVerifierPool(mesh_mode="auto")`
+            made on it, `BeaconRestApiServer(BeaconApiImpl(chain), port=0)`
+            on 127.0.0.1, and a `RestValidator` over a `BeaconApiClient`
+            whose store (`SlashingProtection` on a `MemoryDbController`)
+            holds the interop keys of the proposers of slots 77-78, the
+            first REST_ATTESTERS members of each slot's committee 0 and one
+            sync-committee member (the first found an aggregator at slot
+            77). Each request is a counted step (counts and replays set to 0
+            just before, read just after; wall s, pool jobs, replays by
+            class). (a) `refresh_indices` over the validators route; (b) two
+            slots of `run_slot_duties`: produce, sign and publish the block
+            (GOSSIP_BLOCK priority, one replay; the second packs what the
+            aggregated pool holds and the first slot's contribution), the
+            attestations (one API job and one class-8 replay each), the
+            sync-committee messages and the contribution; the new head's
+            state root on the card equal to the block's; (c) an
+            attestation with signature byte REST_TAMPERED_BYTE changed and
+            a block signed with another validator's key: HTTP 400 after one
+            replay each, head and db unchanged; (d) an SSE stream on head
+            and block, opened before (b), saw both slots; (e) the server
+            stopped, no stream and no server thread left, the pool and the
+            loop closed. Every signature the validator made is then checked
+            once on the host oracle. Every replay at a class phase 7 warmed,
+            no graph captured, no eager launch. Lines start `rest:`.
 11. check   a Miller loop + final exponentiation of two pairs on the card
             equals the CPU path (the plain versions) limb for limb, and
             equals e(P, Q) from the host pairing check on canonical values.
@@ -4822,7 +4848,7 @@ P2P_TAMPERED_BYTE = 40  # the byte of the slot-73 block's proposer signature cha
 
 
 class P2pCheckFailed(RuntimeError):
-    """A check of phase 10d's scenario failed."""
+    """A check of phase 10d's, 10e's or 10f's scenario failed."""
 
 
 class GossipNode:
@@ -5644,6 +5670,547 @@ def lightclient_phase(dev, smi, blocked, synced, count=LC_BLOCKS):
     return out
 
 
+# --- phase 10f ---------------------------------------------------------------
+# A validator client over the port's Beacon REST API: `RestValidator` on a
+# `BeaconApiClient`, the node's `BeaconRestApiServer` over phase 10e's chain,
+# every block, attestation, sync-committee message and contribution verified
+# by the chain's pool on the loop the chain runs on (`chain.loop`).
+
+REST_SLOTS = 2  # slots of validator duties on the chain's head
+REST_ATTESTERS = 4  # members of each slot's committee 0 in the validator's store
+REST_SYNC_SCAN = 64  # sync-committee members tried for an aggregator at the first slot
+REST_TAMPERED_BYTE = 40  # the forged attestation's signature byte changed
+REST_TOPICS = ("head", "block")
+
+
+def rest_keys(chain, sks, p, cfg, slots, attesters=REST_ATTESTERS, scan=REST_SYNC_SCAN):
+    """The validator's keys for `slots` on the chain's head: each slot's
+    proposer, the first `attesters` members of each slot's committee 0, and
+    one member of the current sync committee: the first whose selection
+    proof at slots[0] makes it its subnet's aggregator (tried over the first
+    `scan` members), else the first. Returns (secret keys, roles)."""
+    from lodestar_tpu_torch.chain.produce_block import dial_to_slot
+    from lodestar_tpu_torch.chain.validation import is_sync_committee_aggregator
+    from lodestar_tpu_torch.config import create_beacon_config
+    from lodestar_tpu_torch.db import MemoryDbController
+    from lodestar_tpu_torch.params import SYNC_COMMITTEE_SUBNET_COUNT
+    from lodestar_tpu_torch.validator import SlashingProtection, ValidatorStore
+
+    head = chain.get_head_state()
+    roles = {"proposers": [], "attesters": {}}
+    for slot in slots:
+        work, ctx = dial_to_slot(head, slot, p, cfg)
+        roles["proposers"].append(int(ctx.get_beacon_proposer(slot)))
+        roles["attesters"][slot] = [int(v) for v in ctx.get_beacon_committee(slot, 0)[:attesters]]
+    index_of = ctx.pubkey_to_index(work)
+    members = [index_of[bytes(pk)] for pk in head.current_sync_committee.pubkeys]
+    sub_size = p.SYNC_COMMITTEE_SIZE // SYNC_COMMITTEE_SUBNET_COUNT
+    probe = ValidatorStore(create_beacon_config(cfg, bytes(head.genesis_validators_root)),
+                           SlashingProtection(MemoryDbController()), [], p)
+    roles["sync"], roles["sync_selected"] = members[0], False
+    for pos, vi in enumerate(members[:scan]):
+        probe.add_secret_key(sks[vi])
+        proof = probe.sign_sync_selection_proof(sks[vi].to_pubkey(), slots[0], pos // sub_size)
+        if is_sync_committee_aggregator(proof, p):
+            roles["sync"], roles["sync_selected"] = vi, True
+            break
+    wanted = sorted({*roles["proposers"], *[v for a in roles["attesters"].values() for v in a],
+                     roles["sync"]})
+    return [sks[i] for i in wanted], roles
+
+
+class RequestCounter:
+    """Makes every request of a `BeaconApiClient` one counted step (`step`:
+    the Fp launch counts and graph replays set to 0 just before the request
+    and read just after) and one record: the step's name, `slot` as set
+    when the request was made, method, route, wall s, and the sets of each
+    pool job appended to `jobs` during it."""
+
+    def __init__(self, client, step, jobs):
+        self.step, self.jobs = step, jobs
+        self.records, self.slot = [], None
+        real = client._req
+
+        def counted(method, path, query=None, body=None):
+            name = f"{len(self.records)}:{method} {path}"
+            n_jobs = len(self.jobs)
+            t0 = time.perf_counter()
+            rec = {"step": name, "slot": self.slot, "method": method, "path": path}
+            self.records.append(rec)
+            with self.step(name):
+                try:
+                    return real(method, path, query, body)
+                finally:
+                    rec["wall_s"] = time.perf_counter() - t0
+                    rec["jobs"] = [len(sets) for sets in self.jobs[n_jobs:]]
+
+        client._req = counted
+
+
+class SseConsumer:
+    """GET /eth/v1/events on a thread, the frames kept as (event, data)."""
+
+    def __init__(self, port, topics=REST_TOPICS):
+        import http.client
+        import threading
+
+        self.frames, self.status = [], None
+        self.ready, self.closed = threading.Event(), threading.Event()
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+
+        def run():
+            try:
+                conn.request("GET", "/eth/v1/events?topics=" + ",".join(topics))
+                resp = conn.getresponse()
+                self.status = resp.status
+                self.ready.set()
+                buf = b""
+                while True:
+                    chunk = resp.read1(4096)
+                    if not chunk:
+                        break
+                    buf += chunk
+                    while b"\n\n" in buf:
+                        frame, buf = buf.split(b"\n\n", 1)
+                        lines = dict(ln.split(": ", 1) for ln in frame.decode().splitlines()
+                                     if not ln.startswith(":"))
+                        if "event" in lines:
+                            self.frames.append((lines["event"], json.loads(lines["data"])))
+            except OSError:
+                pass
+            finally:
+                conn.close()
+                self.ready.set()
+                self.closed.set()
+
+        self.thread = threading.Thread(target=run, name="sse-consumer", daemon=True)
+        self.thread.start()
+        if not self.ready.wait(30) or self.status != 200:
+            raise P2pCheckFailed(f"rest: the SSE stream did not open ({self.status})")
+
+    def slots(self, event):
+        return sorted({int(d["slot"]) for e, d in self.frames if e == event})
+
+
+def oracle_checks(store, roles_pk, outs, p, t):
+    """Every signature the validator produced, once, on the host oracle:
+    (kind, True/False) per signature."""
+    import hashlib
+
+    from lodestar_tpu_torch import params, ssz
+    from lodestar_tpu_torch.config import compute_signing_root
+    from lodestar_tpu_torch.crypto.bls import api as bls
+    from lodestar_tpu_torch.state_transition.block import fork_of
+
+    cfg = store.config
+    checks = []
+
+    def check(kind, pk, root, sig):
+        checks.append((kind, bls.verify(pk, root, bytes(sig))))
+
+    for out in outs:
+        signed = out["proposed"]
+        block = signed.message
+        epoch = int(block.slot) // p.SLOTS_PER_EPOCH
+        pk = roles_pk[int(block.proposer_index)]
+        ns = getattr(t, fork_of(block))
+        check("block", pk, compute_signing_root(
+            ns.BeaconBlock, block, cfg.get_domain(params.DOMAIN_BEACON_PROPOSER, epoch)),
+            signed.signature)
+        check("randao", pk, compute_signing_root(
+            ssz.uint64, epoch, cfg.get_domain(params.DOMAIN_RANDAO, epoch)),
+            block.body.randao_reveal)
+        for att, vi in out["attesters"]:
+            check("attestation", roles_pk[vi], compute_signing_root(
+                t.AttestationData, att.data,
+                cfg.get_domain(params.DOMAIN_BEACON_ATTESTER, int(att.data.target.epoch))),
+                att.signature)
+        for msg in out["sync_messages"]:
+            domain = cfg.get_domain(params.DOMAIN_SYNC_COMMITTEE,
+                                    int(msg.slot) // p.SLOTS_PER_EPOCH)
+            check("sync message", roles_pk[int(msg.validator_index)],
+                  hashlib.sha256(bytes(msg.beacon_block_root) + domain).digest(), msg.signature)
+        for signed_cp in out["sync_contributions"]:
+            cp = signed_cp.message
+            epoch = int(cp.contribution.slot) // p.SLOTS_PER_EPOCH
+            pk = roles_pk[int(cp.aggregator_index)]
+            check("contribution", pk, compute_signing_root(
+                t.ContributionAndProof, cp,
+                cfg.get_domain(params.DOMAIN_CONTRIBUTION_AND_PROOF, epoch)), signed_cp.signature)
+            data = t.SyncAggregatorSelectionData.default()
+            data.slot = int(cp.contribution.slot)
+            data.subcommittee_index = int(cp.contribution.subcommittee_index)
+            check("selection proof", pk, compute_signing_root(
+                t.SyncAggregatorSelectionData, data,
+                cfg.get_domain(params.DOMAIN_SYNC_COMMITTEE_SELECTION_PROOF, epoch)),
+                cp.selection_proof)
+    return checks
+
+
+def server_threads():
+    """The live threads of an HTTP server: its serve loop and its handlers."""
+    import threading
+
+    return sorted(th.name for th in threading.enumerate()
+                  if "serve_forever" in th.name or "process_request_thread" in th.name)
+
+
+def db_digest(chain):
+    import hashlib
+
+    h, n = hashlib.sha256(), 0
+    for k, v in chain.blocks_db.db.entries_stream():
+        h.update(k + v)
+        n += 1
+    return n, h.hexdigest()
+
+
+def rest_run(chain, sks, p, cfg, slots, make_verifier, step=None):
+    """Phase 10f's scenario on `chain` (its head the parent of slots[0]): an
+    event loop on a thread attached as `chain.loop`, `make_verifier()` made
+    on it as the chain's verifier, the port's `BeaconRestApiServer` on
+    127.0.0.1 and a `RestValidator` over a `BeaconApiClient` with the keys
+    of `rest_keys`. (a) `refresh_indices`, (b) `run_slot_duties` at each of
+    `slots`, the SSE stream (d) open on head and block, (c) a forged
+    attestation and a block signed with another key, both HTTP 400, (e) the
+    server stopped. `step(name)` is a context manager around each request
+    (CountedStep), or None. Returns what each step gave; a check that fails
+    raises P2pCheckFailed."""
+    import asyncio
+    import threading
+
+    from lodestar_tpu_torch import params
+    from lodestar_tpu_torch.api import BeaconApiClient, BeaconApiImpl, BeaconRestApiServer
+    from lodestar_tpu_torch.api.client import ApiClientError
+    from lodestar_tpu_torch.config import create_beacon_config
+    from lodestar_tpu_torch.crypto.bls import api as bls
+    from lodestar_tpu_torch.db import MemoryDbController
+    from lodestar_tpu_torch.ssz.json import from_json, to_json
+    from lodestar_tpu_torch.state_transition import state_hash_tree_root
+    from lodestar_tpu_torch.state_transition.block import fork_of
+    from lodestar_tpu_torch.state_transition.util import compute_signing_root, get_domain
+    from lodestar_tpu_torch.types import ssz_types
+    from lodestar_tpu_torch.validator import SlashingProtection, ValidatorStore
+    from lodestar_tpu_torch.validator.rest_client import RestValidator
+
+    def check(ok, msg):
+        if not ok:
+            raise P2pCheckFailed(f"rest: {msg}")
+
+    step = step or (lambda name: contextlib.nullcontext())
+    t = ssz_types(p)
+    out = {"slots": list(slots)}
+    t0 = time.perf_counter()
+    keys, roles = rest_keys(chain, sks, p, cfg, slots)
+    out["keys_s"] = time.perf_counter() - t0
+    out["roles"] = roles
+    roles_pk = {}
+    head = chain.get_head_state()
+    index_of = {bytes(v.pubkey): i for i, v in enumerate(head.validators)}
+    for sk in keys:
+        roles_pk[index_of[sk.to_pubkey()]] = sk.to_pubkey()
+
+    loop = asyncio.new_event_loop()
+    loop_thread = threading.Thread(target=loop.run_forever, name="rest-chain-loop", daemon=True)
+    loop_thread.start()
+
+    def on_loop(coro):
+        return asyncio.run_coroutine_threadsafe(coro, loop).result()
+
+    async def attach():
+        chain.bls = make_verifier()
+
+    jobs = []
+    server = None
+    try:
+        on_loop(attach())
+        chain.loop = loop
+        verify = chain.bls.verify_signature_sets
+
+        async def counted_verify(sets, opts=None):
+            jobs.append(sets)
+            return await verify(sets, opts)
+
+        chain.bls.verify_signature_sets = counted_verify
+        server = BeaconRestApiServer(BeaconApiImpl(chain), port=0)
+        server.start()
+        client = BeaconApiClient(f"http://127.0.0.1:{server.port}")
+        counter = RequestCounter(client, step, jobs)
+        gvr = bytes(head.genesis_validators_root)
+        store = ValidatorStore(create_beacon_config(cfg, gvr),
+                               SlashingProtection(MemoryDbController()), keys, p)
+        rv = RestValidator(client=client, store=store, p=p)
+        sse = SseConsumer(server.port)
+
+        # (a) index discovery over the validators route
+        counter.slot = "a"
+        rv.refresh_indices()
+        rv._indices_epoch = slots[0] // p.SLOTS_PER_EPOCH  # (a) was this epoch's poll
+        check(sorted(rv._index_to_pubkey) == sorted(roles_pk),
+              f"refresh_indices mapped {sorted(rv._index_to_pubkey)}, not {sorted(roles_pk)}")
+
+        # (b) the duties of each slot
+        outs = []
+        for slot in slots:
+            chain.on_slot(slot)
+            counter.slot = slot
+            t0 = time.perf_counter()
+            res = rv.run_slot_duties(slot)
+            res["wall_s"] = time.perf_counter() - t0
+            signed = res["proposed"]
+            check(signed is not None, f"slot {slot}: no block proposed")
+            block_root = signed.message.type.hash_tree_root(signed.message)
+            check(chain.head_root == block_root, f"slot {slot}: the published block is not the head")
+            with step(f"{slot}:root"):
+                root = state_hash_tree_root(chain.get_head_state())
+            check(root == bytes(signed.message.state_root),
+                  f"slot {slot}: the head state's root is not the block's")
+            ctx = dial_to_slot_ctx(chain, slot, p, cfg)[1]
+            res["attesters"] = []
+            for att in res["attestations"]:
+                check(att.data.slot == slot and bytes(att.data.beacon_block_root) == block_root,
+                      f"slot {slot}: an attestation is not on the new head")
+                committee = ctx.get_beacon_committee(slot, int(att.data.index))
+                res["attesters"].append(
+                    (att, int(committee[list(att.aggregation_bits).index(True)])))
+            pooled = len(chain.attestation_pool._by_slot.get(slot, {}))
+            check(pooled >= 1 and len(res["attestations"]) >= len(roles["attesters"][slot]),
+                  f"slot {slot}: {len(res['attestations'])} attestations, pool {pooled}")
+            check(res["sync_messages"], f"slot {slot}: no sync-committee message")
+            msg = res["sync_messages"][0]
+            seats = [pos for pos, pk in enumerate(chain.get_head_state().current_sync_committee
+                                                  .pubkeys) if bytes(pk) == roles_pk[roles["sync"]]]
+            sub_size = p.SYNC_COMMITTEE_SIZE // params.SYNC_COMMITTEE_SUBNET_COUNT
+            pooled_sync = [chain.sync_committee_message_pool.get_contribution(
+                pos // sub_size, slot, block_root) for pos in seats]
+            check(all(c is not None for c in pooled_sync) and int(msg.slot) == slot,
+                  f"slot {slot}: the sync-committee message is not in the node's pool")
+            res["seats"] = seats
+            if slot == slots[0] and roles["sync_selected"]:
+                check(res["sync_contributions"], f"slot {slot}: the selected aggregator's "
+                      "contribution was not accepted")
+            res["block_attestations"] = len(signed.message.body.attestations)
+            res["block_sync_bits"] = (sum(1 for b in signed.message.body.sync_aggregate
+                                          .sync_committee_bits if b)
+                                      if fork_of(signed.message) != "phase0" else 0)
+            outs.append(res)
+        out["outs"] = outs
+
+        # (c1) an attestation with one signature byte changed, by a member not yet seen
+        slot = slots[-1]
+        ctx = dial_to_slot_ctx(chain, slot, p, cfg)[1]
+        index, pos, vi, size = next(
+            (c, i, int(v), len(committee))
+            for c in range(ctx.get_committee_count_per_slot(slot // p.SLOTS_PER_EPOCH))
+            for committee in [ctx.get_beacon_committee(slot, c)]
+            for i, v in enumerate(committee) if int(v) not in roles_pk)
+        data = outs[-1]["attestations"][0].data.copy()
+        data.index = index
+        att = t.Attestation.default()
+        bits = [False] * size
+        bits[pos] = True
+        att.aggregation_bits, att.data = bits, data
+        domain = get_domain(chain.get_head_state(), params.DOMAIN_BEACON_ATTESTER,
+                            int(data.target.epoch))
+        sig = bytearray(bls.sign(sks[vi], compute_signing_root(t.AttestationData, data, domain)))
+        sig[REST_TAMPERED_BYTE] ^= 0x01
+        att.signature = bytes(sig)
+        counter.slot = "c1"
+        try:
+            client.submit_pool_attestations([to_json(t.Attestation, att)])
+            out["forged_attestation"] = "accepted"
+        except ApiClientError as e:
+            out["forged_attestation"] = str(e)
+        check(out["forged_attestation"].startswith("400"),
+              f"the forged attestation gave {out['forged_attestation']}")
+
+        # (c2) a block signed with another validator's key
+        forged_slot = slots[-1] + 1
+        chain.on_slot(forged_slot)
+        work_head, db_before = chain.head_root, db_digest(chain)
+        _, ctx = dial_to_slot_ctx(chain, forged_slot, p, cfg)
+        proposer = int(ctx.get_beacon_proposer(forged_slot))
+        other = (proposer + 1) % len(head.validators)
+        signer = ValidatorStore(store.config, SlashingProtection(MemoryDbController()),
+                                [sks[proposer], sks[other]], p)
+        epoch = forged_slot // p.SLOTS_PER_EPOCH
+        counter.slot = "c2"
+        produced = client.produce_block_v2(forged_slot,
+                                           signer.sign_randao(sks[proposer].to_pubkey(), epoch))
+        ns = getattr(t, produced["version"])
+        block = from_json(ns.BeaconBlock, produced["data"])
+        forged = signer.sign_block(sks[other].to_pubkey(), block)
+        try:
+            client.publish_block(to_json(ns.SignedBeaconBlock, forged))
+            out["forged_block"] = "accepted"
+        except ApiClientError as e:
+            out["forged_block"] = str(e)
+        check(out["forged_block"].startswith("400") and "INVALID_SIGNATURES" in out["forged_block"],
+              f"the forged block gave {out['forged_block']}")
+        check(chain.head_root == work_head, "the head moved on the forged block")
+        check(db_digest(chain) == db_before, "the db changed on the forged block")
+        out["db_entries"] = db_before[0]
+
+        # (d) the SSE stream saw both slots' blocks and heads
+        deadline = time.time() + 10
+        while time.time() < deadline and not all(
+                set(slots) <= set(sse.slots(e)) for e in REST_TOPICS):
+            time.sleep(0.05)
+        out["sse"] = {e: sse.slots(e) for e in REST_TOPICS}
+        check(all(set(slots) <= set(out["sse"][e]) for e in REST_TOPICS),
+              f"the SSE stream saw {out['sse']}")
+        out["sse_frames"] = len(sse.frames)
+
+        # (e) shutdown: no stream and no server thread left
+        t0 = time.perf_counter()
+        server.stop()
+        server_stopped = server
+        server = None
+        sse.closed.wait(15)
+        sse.thread.join(15)
+        deadline = time.time() + 15
+        while time.time() < deadline and server_threads():
+            time.sleep(0.05)
+        left = server_threads()
+        out["stop_s"] = time.perf_counter() - t0
+        check(not server_stopped._sse_streams, "an SSE stream is still registered")
+        check(not sse.thread.is_alive(), "the SSE consumer never saw the stream end")
+        check(not left, f"threads left after stop: {left}")
+        out["records"] = counter.records
+        t0 = time.perf_counter()
+        out["oracle"] = oracle_checks(store, roles_pk, outs, p, t)
+        out["oracle_s"] = time.perf_counter() - t0
+        bad = [kind for kind, ok in out["oracle"] if not ok]
+        check(not bad, f"the host oracle refuses the validator's signatures: {bad}")
+    finally:
+        if server is not None:
+            server.stop()
+        chain.loop = None
+        try:
+            on_loop(chain.bls.close())
+            on_loop(loop.shutdown_default_executor())
+        finally:
+            loop.call_soon_threadsafe(loop.stop)
+            loop_thread.join(15)
+            loop.close()
+    return out
+
+
+def dial_to_slot_ctx(chain, slot, p, cfg):
+    from lodestar_tpu_torch.chain.produce_block import dial_to_slot
+
+    return dial_to_slot(chain.get_head_state(), slot, p, cfg)
+
+def rest_phase(dev, smi, blocked, synced, count=REST_SLOTS):
+    """Phase 10f: `rest_run` on phase 10e's chain (10d's synced chain, head
+    at slot 76) on a fresh `BlsDeviceVerifierPool(mesh_mode="auto")`, for
+    `count` slots past its head. Each request is a counted step; the kernels'
+    `rest_replayed` sums them. Every pool job must be one replay at a class
+    phase 7 warmed; no graph may be captured and no kernel launched eagerly.
+    Lines start `rest:`."""
+    from lodestar_tpu_torch.chain.bls import BlsDeviceVerifierPool
+    from lodestar_tpu_torch.chain.bls.pool import POOL_SIZE_CLASSES
+    from lodestar_tpu_torch.models import batch_verify as bv
+    from lodestar_tpu_torch.ops import fp_cuda
+    from lodestar_tpu_torch.ssz import device_htr as dh
+
+    setup = blocked["setup"]
+    p, cfg, sks = setup["p"], setup["cfg"], setup["sks"]
+    chain = synced["chains"]["synced"]
+    on_card = dev.type == "cuda"
+    cache = bv._SINGLE_LAUNCH_GRAPHS
+    captures = (cache.captures, dh.HTR_GRAPHS.captures, dh.ROOT_GRAPHS.captures)
+    steps, replayed_total, classes_seen = {}, dict.fromkeys(fp_cuda.KERNELS, 0), set()
+
+    def Step(name):
+        return CountedStep(dev, steps, replayed_total, classes_seen, name)
+
+    def make_verifier():
+        return (BlsDeviceVerifierPool(mesh_mode="auto") if on_card
+                else BlsDeviceVerifierPool(device=dev))
+
+    head_slot = int(chain.get_head_state().slot)
+    slots = range(head_slot + 1, head_slot + 1 + count)
+    t0 = time.perf_counter()
+    try:
+        rec = rest_run(chain, sks, p, cfg, slots, make_verifier, step=Step)
+    except P2pCheckFailed as e:
+        fail(str(e))
+    wall = time.perf_counter() - t0
+    records = rec["records"]
+    for r in records:
+        st = steps[r["step"]]
+        r["replays_by_class"] = st["replays_by_class"]
+        if not on_card:
+            continue
+        if sum(st["replays_by_class"].values()) != len(r["jobs"]):
+            fail(f"rest: {r['method']} {r['path']} ran {len(r['jobs'])} pool jobs in "
+                 f"{st['replays_by_class']} replays, not one replay each")
+        if any(st["fp_eager"].values()):
+            fail(f"rest: eager kernel launches in {r['method']} {r['path']}: {st['fp_eager']}")
+    for slot in slots:
+        if on_card and steps[f"{slot}:root"]["replays_by_class"]:
+            fail(f"rest: the state root of slot {slot} replayed a BLS graph")
+    verifying = {("POST", "/eth/v1/beacon/blocks"), ("POST", "/eth/v1/beacon/pool/attestations"),
+                 ("POST", "/eth/v1/beacon/pool/sync_committees")}
+    for r in records:
+        if isinstance(r["slot"], int) and (r["method"], r["path"]) in verifying and not r["jobs"]:
+            fail(f"rest: slot {r['slot']} {r['method']} {r['path']} verified nothing")
+    if on_card:
+        missing = [k for k in fp_cuda.KERNELS if replayed_total[k] <= 0]
+        if missing:
+            fail(f"rest: kernels never launched in the phase: {missing}")
+        unwarmed = sorted(classes_seen - set(POOL_SIZE_CLASSES))
+        if unwarmed:
+            fail(f"rest: replays at classes phase 7 did not warm: {unwarmed}")
+    now = (cache.captures, dh.HTR_GRAPHS.captures, dh.ROOT_GRAPHS.captures)
+    if now != captures:
+        fail(f"rest: graphs were captured in the phase (BLS, HTR level, HTR root: "
+             f"{captures} -> {now})")
+
+    roles = rec["roles"]
+    say(f"rest: validator keys for slots {slots[0]}-{slots[-1]} chosen in {rec['keys_s']:.2f} s: "
+        f"proposers {roles['proposers']}, attesters {roles['attesters']}, sync-committee "
+        f"member {roles['sync']} ({'aggregator' if roles['sync_selected'] else 'not selected'}"
+        f" at slot {slots[0]})")
+    for r in records:
+        label = f"(b) slot {r['slot']}" if isinstance(r["slot"], int) else f"({r['slot']})"
+        say(f"rest: {label} {r['method']} {r['path']}: {r['wall_s']:.3f} s, pool jobs {len(r['jobs'])} "
+            f"(sets {r['jobs']}), replays {r['replays_by_class']}")
+    slot_out = []
+    for slot, res in zip(slots, rec["outs"]):
+        slot_out.append({"slot": slot, "wall_s": res["wall_s"],
+                         "attestations": len(res["attestations"]),
+                         "sync_messages": len(res["sync_messages"]), "seats": res["seats"],
+                         "contributions": len(res["sync_contributions"]),
+                         "block_attestations": res["block_attestations"],
+                         "block_sync_bits": res["block_sync_bits"],
+                         "root_htr_replays": steps[f"{slot}:root"]["htr_replays_by_class"]})
+        say(f"rest: (b) slot {slot}: run_slot_duties {res['wall_s']:.3f} s; block imported as "
+            f"the head carrying {res['block_attestations']} attestations and "
+            f"{res['block_sync_bits']} sync bits, its state root on the card the block's; "
+            f"{len(res['attestations'])} attestations, {len(res['sync_messages'])} sync "
+            f"message(s) over seats {res['seats']}, {len(res['sync_contributions'])} "
+            f"contribution(s) accepted on {smi}")
+    oracle = rec["oracle"]
+    kinds = sorted({k for k, _ in oracle})
+    say(f"rest: (b) the validator's {len(oracle)} signatures ("
+        f"{', '.join(f'{sum(1 for x, _ in oracle if x == k)} {k}' for k in kinds)}) all True "
+        f"on the host oracle in {rec['oracle_s']:.2f} s, outside the timed windows")
+    say(f"rest: (c) the attestation with signature byte {REST_TAMPERED_BYTE} changed: "
+        f"{rec['forged_attestation']}; the block signed with another key: "
+        f"{rec['forged_block']}; head and db ({rec['db_entries']} entries) unchanged")
+    say(f"rest: (d) SSE stream on {','.join(REST_TOPICS)}: {rec['sse_frames']} events, slots "
+        f"{rec['sse']}; (e) the server stopped in {rec['stop_s']:.3f} s with no stream and no "
+        f"server thread left; phase {wall:.1f} s")
+    return {"slots": slot_out, "roles": roles, "keys_s": rec["keys_s"],
+            "requests": [{k: r[k] for k in ("slot", "method", "path", "wall_s", "jobs",
+                                            "replays_by_class")} for r in records],
+            "forged_attestation": rec["forged_attestation"], "forged_block": rec["forged_block"],
+            "sse": rec["sse"], "oracle_s": rec["oracle_s"], "signatures": len(oracle),
+            "stop_s": rec["stop_s"], "wall_s": wall, "replayed": replayed_total}
+
+
 # --- comparison with an earlier commit's kernels (--compare-parent) -----------
 
 
@@ -5834,6 +6401,8 @@ def main():
     p2ped = phase("p2p", p2p_phase, dev, smi, blocked, synced)
     # 10e. full sync aggregates on the chain and a light client following it
     lced = phase("lightclient", lightclient_phase, dev, smi, blocked, synced)
+    # 10f. a validator client's duties over the REST API on that chain
+    rested = phase("rest", rest_phase, dev, smi, blocked, synced)
     # 11. check against the CPU path
     phase("check", check_against_cpu, dev)
     if parent is not None:
@@ -5880,6 +6449,7 @@ def main():
             "sync_replayed": synced["replayed"][name],
             "p2p_replayed": p2ped["replayed"][name],
             "lc_replayed": lced["replayed"][name],
+            "rest_replayed": rested["replayed"][name],
         }
         for label, per_rows in runs.items():
             by_rows = per_rows[name]
@@ -5930,6 +6500,7 @@ def main():
     say("p2p: " + json.dumps({k: v for k, v in p2ped.items() if k != "replayed"}))
     say("lightclient: " + json.dumps({k: v for k, v in lced.items() if k != "replayed"},
                                      default=str))
+    say("rest: " + json.dumps({k: v for k, v in rested.items() if k != "replayed"}))
     say(f"result: {main_run['sigs_per_s']:.1f} sigs/s verify-only, "
         f"{main_run['bytes_to_verdict_sigs_per_s']:.1f} sigs/s bytes to verdict ({merged}-set "
         f"merged batch, split schedule, device prep {main_run['prep_s']:.3f} s); single launch "

@@ -18,6 +18,7 @@ scenario matrix and the long soaks stay `slow`, as in the JAX package
 
 from __future__ import annotations
 
+import importlib
 import json
 
 import pytest
@@ -36,6 +37,31 @@ def fleets():
     return jfleet, tfleet
 
 
+@pytest.fixture
+def occupancy_on_the_fleet_clock(monkeypatch):
+    """Each package's offload hosts measure their occupancy on the fleet's
+    `SimClock`, as every other clock seam of the fleet does. Their
+    `OccupancyTracker` reads `time.monotonic_ns` otherwise, so the last
+    probe's `occupancy_permille`, which the endpoint states compare, is a
+    busy fraction of real time: it depends on how loaded the host was
+    during the run, not on the package."""
+    for root, fleet in zip(("lodestar_tpu", "lodestar_tpu_torch"), fleets()):
+        clocks = []
+
+        class RecordedClock(fleet.SimClock):
+            def __init__(self, *args, clocks=clocks, **kwargs):
+                super().__init__(*args, **kwargs)
+                clocks.append(self)
+
+        server = importlib.import_module(f"{root}.offload.server")
+
+        def tracker(clocks=clocks, real=server.OccupancyTracker, **kwargs):
+            return real(time_fn=clocks[-1].monotonic_ns, **kwargs)
+
+        monkeypatch.setattr(fleet, "SimClock", RecordedClock)
+        monkeypatch.setattr(server, "OccupancyTracker", tracker)
+
+
 def observe(fleet, name, seed, **overrides):
     result = fleet.run_fleet(fleet.build_scenario(name, seed=seed, **overrides))
     return {
@@ -49,17 +75,35 @@ def observe(fleet, name, seed, **overrides):
 
 
 @pytest.mark.parametrize("seed", [0, 3, 9, 17, 2024])
+@pytest.mark.usefixtures("occupancy_on_the_fleet_clock")
 def test_smoke_is_byte_identical_between_the_packages(seed):
     jax_run, port_run = (observe(f, "smoke", seed) for f in fleets())
     assert port_run == jax_run
     assert port_run["ledger_lines"] and port_run["invariants"] == []
 
 
+AUDIT_DRAIN_S = 300.0  # each node's audit drain: the whole backlog, however loaded the host
+
+
 @pytest.mark.parametrize("overrides", [{"audit_rate": 0.5}, {"invalid_rate": 0.25},
                                        {"nodes": 3, "hosts": 2}],
                          ids=["audit", "invalid", "3x2"])
-def test_smoke_variants_are_byte_identical_between_the_packages(overrides):
+@pytest.mark.usefixtures("occupancy_on_the_fleet_clock")
+def test_smoke_variants_are_byte_identical_between_the_packages(overrides, monkeypatch):
+    """Each node's `drain_audit` (both packages' give up after 10 s and say
+    nothing) waits here until its auditor has accounted for every sampled
+    verdict, and must say so: a loaded host could otherwise snapshot one
+    package's trust and quarantine before its last audit."""
+    drained = []
+    for fleet in fleets():
+        def drain_audit(node):
+            if node.auditor is not None:
+                drained.append(node.auditor.drain(timeout_s=AUDIT_DRAIN_S))
+
+        monkeypatch.setattr(fleet._SimNode, "drain_audit", drain_audit)
     jax_run, port_run = (observe(f, "smoke", 5, **overrides) for f in fleets())
+    assert all(drained), f"{drained.count(False)} audit drains outlasted {AUDIT_DRAIN_S} s"
+    assert bool(drained) == ("audit_rate" in overrides)
     assert port_run == jax_run
     assert port_run["invariants"] == []
 
