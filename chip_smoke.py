@@ -69,9 +69,11 @@ Phases, in order; any failure exits non-zero and prints no result:
             TIMED_RUNS timed): capture and instantiate s, the graph's node count
             (`cuGraphGetNodes`), its pool's reserved memory, bytes-to-
             verdict s and sigs/s beside the split schedule's of phase 4,
-            the host byte stage alone, copy in + replay + verdict read, one
-            profiled replay (device busy ms, idle share of the unprofiled
-            replay), Fp launches per replay (counted at capture); the
+            the host byte stage alone, copy in + replay + verdict read, the
+            replay's device time by CUDA events (the gaps between its kernel
+            nodes included) and its share of copy in + replay + read (the
+            card's idle share is not measured here), Fp launches per replay
+            (counted at capture); the
             replay's (verdict, batch_valid) equals the eager body's and the
             split schedule's verdict on the same inputs and bits. Then
             `device_batch_verify_many` on the merged batch as 16 jobs of
@@ -89,7 +91,7 @@ Phases, in order; any failure exits non-zero and prints no result:
             replays reset just before and read just after, and no capture
             allowed: 16 batchable jobs of 128 at API priority (4 replays of
             class 512), the same at range-sync priority (16 of class 128),
-            SERVE_GOSSIP_JOBS (256) one-set gossip-attestation jobs at once (the buffer and
+            SERVE_GOSSIP_JOBS (128) one-set gossip-attestation jobs at once (the buffer and
             16-job chunks: replays of class 16, and 8 for a short last
             chunk), 4 jobs of 128 with two swapped signatures in the second
             (one class-512 replay False, then 4 per-job class-128 replays:
@@ -172,8 +174,9 @@ Phases, in order; any failure exits non-zero and prints no result:
             BATCH of the merged sets, so one shard class serves the whole
             phase) True and the tampered copy False, as the single launch
             says, each in n_shards + 1 dispatches, TIMED_RUNS timed, sigs/s; (e)
-            the pool over two lanes with the real collective: 8 range-sync
-            jobs of 128 True in 8 sharded launches with 0 fallbacks, one
+            the pool over two lanes with the real collective:
+            SHARD_POOL_JOBS (2) range-sync jobs of 128 True in as many
+            sharded launches with 0 fallbacks, one
             job with a bad signature False through the per-job retry, no
             capture, no eager launch; replays read. (b) the graph road's
             partials limb-equal to the eager road's on the same bits; (c)
@@ -331,7 +334,6 @@ Phases, in order; any failure exits non-zero and prints no result:
             `BeaconChain.process_block` as 3 sets (proposer, randao, the
             512-pubkey sync-committee set) in one class-8 replay, split into
             set-building s, pool s and the server's `on_imported_block` s;
-            the last under the profiler (the card's busy ms, idle share);
             (b) block 77, its aggregate signed over another root, rejected
             INVALID_SIGNATURES after one class-8 replay, head and the
             server's updates unchanged; (c) a `Lightclient` (fork version:
@@ -367,6 +369,36 @@ Phases, in order; any failure exits non-zero and prints no result:
             loop closed. Every signature the validator made is then checked
             once on the host oracle. Every replay at a class phase 7 warmed,
             no graph captured, no eager launch. Lines start `rest:`.
+10g. node  the port's node and CLI (`node_run`), at the minimal preset.
+            (a) `lodestar_tpu_torch.cli.main(["dev", "--validators", "16",
+            "--slots", "32", "--preset", "minimal", "--rest-port", P,
+            "--linger", L])` in-process on a thread of its own, with the
+            default `--device cuda`: its `BeaconNode`'s verifier must be the
+            CUDA `BlsDeviceVerifierPool`; each of its 32 blocks imports
+            through `BeaconChain.process_block` in one class-8 replay (the
+            graph phase 7 captured); the chain finalizes epoch 2 at slot 32,
+            main returns 0. Its slot lines are printed as `node: (a) ...`;
+            per-import s, replays by class, Fp launches per kernel beside
+            32 x a class-8 replay's, a class-8 replay's device ms by CUDA
+            events and its kernels' busy ms under the profiler (one replay
+            after the phase), and the card's idle share, estimated: the
+            run's replays x that busy ms, over the run's wall s.
+            (b) while (a) lingers: `fetch_checkpoint_state` over a
+            `BeaconApiClient` on (a)'s REST server (the finalized state, its
+            root the finalized block's state root), blocks 17-32 with
+            `get_block_v2`, and `BeaconNode.init` on the card anchored on
+            the state (db in a temp dir, metrics and REST servers on free
+            ports, a manual clock at slot 32): the 16 blocks in 16 class-8
+            replays, its head and finalized and justified checkpoints beside
+            (a)'s; one /metrics scrape (head slot, finalized epoch, pool
+            jobs, the single launch's dispatches by class) equal to the
+            phase's own counts; one `notifier.on_slot(32)` line. (c) both
+            nodes closed: no server thread, listening socket or new thread
+            left; the preset and the process-global prep, HTR, telemetry and
+            SLO settings the nodes reconfigured restored. Counts and replays
+            set to 0 just before (a) and (b) and read just after; no graph
+            captured, no eager launch, no block rejected. Lines start
+            `node:`.
 11. check   a Miller loop + final exponentiation of two pairs on the card
             equals the CPU path (the plain versions) limb for limb, and
             equals e(P, Q) from the host pairing check on canonical values.
@@ -450,7 +482,7 @@ BATCH = 128  # sets per gossip job
 MERGE_JOBS = 16  # jobs merged into one RLC batch
 TIMED_RUNS = 1  # timed runs after the warm-up in phases 4, 6 and 7d
 SERVE_CLASS_REPLAYS = 1  # phase 7's timed replays of each warmed class
-SERVE_GOSSIP_JOBS = 256  # phase 7's one-set gossip jobs
+SERVE_GOSSIP_JOBS = 128  # phase 7's one-set gossip jobs
 
 # H100 SXM peaks for the bound (NVIDIA's data sheet and the Hopper
 # architecture white paper): 3.35 TB/s of HBM; int32 multiply-adds at
@@ -1275,19 +1307,12 @@ def single_launch(dev, smi, main):
     say(f"single: host byte stage x{TIMED_RUNS}: {', '.join(f'{t:.3f}' for t in host)} s; "
         f"copy in + replay + verdict read x{TIMED_RUNS}: {', '.join(f'{t:.3f}' for t in replay)} "
         f"s on {smi}")
-    (verdict, _), prof_wall, events = profiled(lambda: cache(dev, *si.arrays, si.bits, si.mask))
-    if not bool(verdict):
-        fail("single launch: the profiled replay did not verify")
-    busy = busy_ms(events)
-    kernels = len(device_events(events))
-    if busy == 0:
-        say("single: replay device busy time: not measured (the trace holds no device events)")
-        idle = None
-    else:
-        idle = 1 - busy / (replay_s * 1e3)
-        say(f"single: profiled replay {prof_wall:.1f} ms wall, {kernels} device events; device "
-            f"busy {busy:.1f} ms, idle {100 * idle:.1f}% of the unprofiled {replay_s * 1e3:.1f} "
-            f"ms replay on {smi}")
+    device_ms = replay_ms(cache.graphs[(dev.index, merged)])
+    share = device_ms / (replay_s * 1e3)
+    say(f"single: the replay's device time {device_ms:.1f} ms (CUDA events around the graph's "
+        f"replay, its static inputs as the last call left them, the gaps between its kernel "
+        f"nodes included), {100 * share:.1f}% of the copy in + replay + verdict read "
+        f"{replay_s * 1e3:.1f} ms on {smi}; the card's idle share: not measured")
 
     # replay == the eager body == the split schedule, on the same inputs and bits
     si = bv.prepare_single_launch_inputs(merged_sets)
@@ -1308,9 +1333,8 @@ def single_launch(dev, smi, main):
         "sigs_per_s": merged / mean,
         "host_s": host_s,
         "replay_s": replay_s,
-        "busy_ms": busy if busy else None,
-        "idle": idle,
-        "device_events": kernels,
+        "replay_device_ms": device_ms,
+        "replay_share": share,
     }
 
 
@@ -1756,11 +1780,7 @@ def offload(dev, smi, main, served):
 
     # (a) the host as its entry point builds it, its tenant families scraped
     # over HTTP on a free port (`--metrics-port`)
-    import socket
-
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        metrics_port = sock.getsockname()[1]
+    metrics_port = free_port()
     argv = [*OFFLOAD_ARGV, "--metrics-port", str(metrics_port)]
     t0 = time.perf_counter()
     server = osrv.build_server(argv)
@@ -2443,7 +2463,7 @@ def check_client_scrape(smi, metrics, client_metrics, audit_metrics, audited):
 # devices are every visible GPU when there are more than one, else cuda:0
 # twice: two shards on one GPU replay one after the other, so on one GPU the
 # phase shows the road is right and what it costs, not a speed-up.
-SHARD_POOL_JOBS = 4  # (e) range-sync jobs of BATCH sets, each sharded over two lanes
+SHARD_POOL_JOBS = 2  # (e) range-sync jobs of BATCH sets, each sharded over two lanes
 
 
 def replay_ms(g, reps=3):
@@ -2462,6 +2482,21 @@ def replay_ms(g, reps=3):
             end.synchronize()
             times.append(start.elapsed_time(end))
     return sum(times) / len(times)
+
+
+def profiled_replay(g):
+    """One replay of a captured graph under `torch.profiler` (its static
+    inputs as the last call left them): the union of its kernels' device
+    spans in ms, None when the trace holds no device events, and the
+    trace's device event count."""
+    import torch
+
+    def run():
+        with torch.cuda.stream(g.stream):
+            g.graph.replay()
+
+    _, _, events = profiled(run)
+    return busy_ms(events) or None, len(device_events(events))
 
 
 def sharded(dev, smi, main, single):
@@ -2686,10 +2721,10 @@ def sharded(dev, smi, main, single):
 # is one CUDA-graph replay of plain PyTorch word ops per pow-2 pair class.
 
 HTR_TREE_DEPTH = 20  # (a) merkle_root_device on 2^20 chunks
-HTR_TREE_TIMED = 2
+HTR_TREE_TIMED = 1
 HTR_STACK_DEPTH = 18  # (b) the collector: a 2^18-chunk stack ...
 HTR_DIRTY = 4096  # ... and 4096 dirty chunks per flush
-HTR_FLUSHES = 2
+HTR_FLUSHES = 1
 HTR_VALIDATORS = 1 << 20  # (c) a mainnet Capella BeaconState
 HTR_ROUNDS = 1  # epoch-boundary rounds, and as many slot-shaped rounds
 # The least int32 operations one pair hash needs (a 64-byte message, two
@@ -3114,7 +3149,7 @@ def htr(dev, smi):
 # The commitment's 4,096-point G1 MSM and every pairing-product check are one
 # CUDA-graph replay each (classes 4,096 and 2), on the five Fp kernels.
 
-KZG_TIMED = 2  # timed commitments after the warm-up
+KZG_TIMED = 1  # timed commitments after the warm-up
 KZG_SEED = 4844
 
 
@@ -5367,7 +5402,7 @@ class LightClientWire:
         return {"version": "capella", "data": to_json(self.t.LightClientOptimisticUpdate, u)}
 
 
-async def lc_run(chain, blocks, forged, p, cfg, step=None, profile=None):
+async def lc_run(chain, blocks, forged, p, cfg, step=None):
     """Phase 10e's scenario on `chain` (its verifier set by the caller, its
     head the parent of `blocks[0]`): a `LightClientServer` attached, (a) each
     of `blocks` (full sync aggregates) imported through `process_block`,
@@ -5375,10 +5410,8 @@ async def lc_run(chain, blocks, forged, p, cfg, step=None, profile=None):
     INVALID_SIGNATURES with the head and the server's updates unchanged,
     (c) a `Lightclient` over req/resp bootstrapping from blocks[0]'s root,
     `sync_to_head`, `poll_head`, and a forged update refused. `step(name)` is
-    a context manager around each counted step (CountedStep), or None; the
-    import of step `profile` ("a1".."a4", or None) runs under
-    `torch.profiler` (its device busy ms and events are kept). Returns what
-    each step gave; a check that fails raises P2pCheckFailed."""
+    a context manager around each counted step (CountedStep), or None.
+    Returns what each step gave; a check that fails raises P2pCheckFailed."""
     import asyncio
     import contextlib
     import hashlib
@@ -5436,14 +5469,6 @@ async def lc_run(chain, blocks, forged, p, cfg, step=None, profile=None):
             return run
         return wrapped(obj, name, make)
 
-    def profiler(name):
-        if name != profile:
-            return contextlib.nullcontext()
-        import torch
-
-        return torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                                  torch.profiler.ProfilerActivity.CUDA])
-
     async def one_import(signed, name):
         sets_s, server_s, pool = [], [], []
         verify = chain.bls.verify_signature_sets
@@ -5461,7 +5486,7 @@ async def lc_run(chain, blocks, forged, p, cfg, step=None, profile=None):
         with timed_list(chain_mod, "get_block_signature_sets", sets_s), \
                 timed_list(server, "on_imported_block", server_s), \
                 wrapped(chain.bls, "verify_signature_sets", lambda real: timed_verify), \
-                step(name), profiler(name) as prof:
+                step(name):
             t0 = time.perf_counter()
             try:
                 await chain.process_block(signed)
@@ -5469,10 +5494,6 @@ async def lc_run(chain, blocks, forged, p, cfg, step=None, profile=None):
             except BlockError as e:
                 rec["verdict"] = e.code
             rec["import_s"] = time.perf_counter() - t0
-        if prof is not None:
-            events = trace_events(prof)
-            rec.update(profiled=True, busy_ms=busy_ms(events),
-                       device_events=len(device_events(events)))
         rec.update(sets_s=sum(sets_s), server_s=sum(server_s),
                    pool_s=sum(v["s"] for v in pool), sets=[v["sets"] for v in pool])
         return rec
@@ -5596,8 +5617,7 @@ def lightclient_phase(dev, smi, blocked, synced, count=LC_BLOCKS):
         chain.bls = (BlsDeviceVerifierPool(mesh_mode="auto") if on_card
                      else BlsDeviceVerifierPool(device=dev))
         try:
-            return await lc_run(chain, built[:-1], built[-1], p, cfg, step=Step,
-                                profile=f"a{count}" if on_card else None)
+            return await lc_run(chain, built[:-1], built[-1], p, cfg, step=Step)
         except P2pCheckFailed as e:
             fail(str(e))
         finally:
@@ -5627,10 +5647,6 @@ def lightclient_phase(dev, smi, blocked, synced, count=LC_BLOCKS):
     out["replays"] = {name: s["replays_by_class"] for name, s in out["steps"].items()}
     out["htr_replays"] = {name: s["htr_replays_by_class"] for name, s in out["steps"].items()}
     out["replayed"] = replayed_total
-    plain = [r["import_s"] for r in out["imports"] if not r.get("profiled")]
-    profiled_rec = next((r for r in out["imports"] if r.get("profiled")), None)
-    if profiled_rec is not None and profiled_rec["busy_ms"]:
-        out["idle"] = 1 - profiled_rec["busy_ms"] / (1e3 * sum(plain) / len(plain))
 
     st = out["steps"]
     say(f"lightclient: blocks {out['slots'][0]}-{out['slots'][1] - 1} with full sync aggregates "
@@ -5644,15 +5660,6 @@ def lightclient_phase(dev, smi, blocked, synced, count=LC_BLOCKS):
             f"{r['pool_s']:.3f} s ({r['sets'][0]} sets) + the server's on_imported_block "
             f"{r['server_s']:.3f} s + the rest; replays {st[name]['replays_by_class']}, HTR "
             f"{st[name]['htr_replays_by_class']}, Fp launches {st[name]['fp_replayed']} on {smi}")
-    if profiled_rec is not None:
-        if not profiled_rec["busy_ms"]:
-            say("lightclient: (a) profiled import: device busy time not measured (no device "
-                "events)")
-        else:
-            say(f"lightclient: (a) block {profiled_rec['slot']} under the profiler: device busy "
-                f"{profiled_rec['busy_ms']:.1f} ms over {profiled_rec['device_events']} device "
-                f"events; idle {100 * out['idle']:.1f}% of the mean unprofiled import "
-                f"{sum(plain) / len(plain):.3f} s on {smi}")
     r = out["forged"]
     say(f"lightclient: (b) block {r['slot']} (aggregate over another root): {r['verdict']} in "
         f"{r['import_s']:.3f} s (sets {r['sets_s']:.3f} s, pool {r['pool_s']:.3f} s); replays "
@@ -6211,6 +6218,415 @@ def rest_phase(dev, smi, blocked, synced, count=REST_SLOTS):
             "stop_s": rec["stop_s"], "wall_s": wall, "replayed": replayed_total}
 
 
+# --- phase 10g ---------------------------------------------------------------
+# The port's node and CLI: a dev chain through `cli.main` finalizing on the
+# card's pool, and a node checkpoint-synced from it over REST.
+
+NODE_VALIDATORS = 16  # the `dev` command's default
+NODE_SLOTS = 32  # the shortest dev run that finalizes (epoch 2, at slot 32)
+NODE_LINGER_S = 5.0  # (a)'s REST server stays up this long after its last slot
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def listening(port):
+    """Whether something accepts TCP connections on 127.0.0.1:port."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.settimeout(1.0)
+        return sock.connect_ex(("127.0.0.1", port)) == 0
+
+
+class ThreadLines:
+    """A stand-in for sys.stdout: what one thread prints is kept, line by
+    line, and passed on with `prefix`; `seen` is set at the first line that
+    starts with `until`. Other threads' output passes through untouched."""
+
+    def __init__(self, real, thread_name, prefix, until):
+        import threading
+
+        self.real, self.thread_name, self.prefix, self.until = real, thread_name, prefix, until
+        self.lines, self.partial = [], ""
+        self.seen = threading.Event()
+
+    def write(self, text):
+        import threading
+
+        if threading.current_thread().name != self.thread_name:
+            return self.real.write(text)
+        self.partial += text
+        while "\n" in self.partial:
+            line, self.partial = self.partial.split("\n", 1)
+            self.lines.append(line)
+            self.real.write(f"{self.prefix}{line}\n")
+            if line.startswith(self.until):
+                self.seen.set()
+        return len(text)
+
+    def flush(self):
+        self.real.flush()
+
+
+@contextlib.contextmanager
+def node_settings_restored():
+    """The process-global settings a `BeaconNode.init` reconfigures, saved
+    on entry and put back on exit: the active preset, the prep and
+    single-launch modes and the prep metrics, the HTR mode, metrics and
+    device, the launch telemetry and the SLO accountant."""
+    from lodestar_tpu_torch import params, slo, telemetry
+    from lodestar_tpu_torch.models import batch_verify as bv
+    from lodestar_tpu_torch.ops import prep
+    from lodestar_tpu_torch.ssz import device_htr as dh
+
+    fields = [(bv, "_prep_mode"), (bv, "_prep_metrics"), (bv, "_single_launch_mode"),
+              (prep, "_launch_counter"), (dh, "_htr_mode"), (dh, "_htr_metrics"),
+              (dh, "_htr_device"), (telemetry, "_mode"), (telemetry, "_metrics"),
+              (telemetry, "_ledger"), (slo._ACCT, "model"), (slo._ACCT, "metrics"),
+              (slo._ACCT, "slack_floor_s"), (slo._ACCT, "monotonic_ns")]
+    saved = [getattr(obj, name) for obj, name in fields]
+    preset = params.active_preset()
+    try:
+        yield
+    finally:
+        for (obj, name), value in zip(fields, saved):
+            setattr(obj, name, value)
+        params.set_active_preset(preset)
+
+
+@contextlib.contextmanager
+def timed_imports(times):
+    """(chain, wall s, error or None) of every `BeaconChain.process_block`
+    inside the block, appended to `times`."""
+    from lodestar_tpu_torch.chain.chain import BeaconChain
+
+    real = vars(BeaconChain)["process_block"]
+
+    async def process_block(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            out = await real(self, *args, **kwargs)
+        except BaseException as e:
+            times.append((self, time.perf_counter() - t0, repr(e)))
+            raise
+        times.append((self, time.perf_counter() - t0, None))
+        return out
+
+    BeaconChain.process_block = process_block
+    try:
+        yield
+    finally:
+        BeaconChain.process_block = real
+
+
+def verifier_kind(bls):
+    """"pool:<device types>" for a `BlsDeviceVerifierPool`, else the class."""
+    from lodestar_tpu_torch.chain.bls import BlsDeviceVerifierPool
+
+    if isinstance(bls, BlsDeviceVerifierPool):
+        return "pool:" + ",".join(sorted({lane.device.type for lane in bls.mesh.lanes}))
+    return type(bls).__name__
+
+
+def checkpoints(chain):
+    """The chain's fork-choice head (slot, root hex) and its finalized and
+    justified checkpoints (epoch, root hex)."""
+    fc = chain.fork_choice
+    head = fc.proto_array.get_block(fc.head)
+    return {"head": [int(head.slot), head.block_root],
+            "finalized": [int(fc.finalized.epoch), fc.finalized.root],
+            "justified": [int(fc.justified.epoch), fc.justified.root]}
+
+
+def fetch_anchor(url, p, slots=NODE_SLOTS):
+    """(b)'s reads over REST from the dev node at `url`: the checkpoint state
+    (`fetch_checkpoint_state` at `current_slot=slots`), the dev node's head
+    and finality checkpoints, the finalized block's state root, and the
+    blocks after the anchor up to `slots` (`get_block_v2`)."""
+    from lodestar_tpu_torch.api.client import BeaconApiClient
+    from lodestar_tpu_torch.node.checkpoint_sync import fetch_checkpoint_state
+    from lodestar_tpu_torch.ssz.json import from_json
+    from lodestar_tpu_torch.types import ssz_types
+
+    client = BeaconApiClient(url)
+    t0 = time.perf_counter()
+    state = fetch_checkpoint_state(client, p=p, current_slot=slots)
+    fetch_s = time.perf_counter() - t0
+    fin = client.get_state_finality_checkpoints("head")["data"]
+    header = client.get_block_header(fin["finalized"]["root"])["data"]["header"]["message"]
+    head = client.get_block_header("head")["data"]["header"]["message"]
+    t = ssz_types(p)
+    blocks = []
+    t0 = time.perf_counter()
+    for slot in range(int(state.slot) + 1, slots + 1):
+        res = client.get_block_v2(str(slot))
+        blocks.append(from_json(getattr(t, res["version"]).SignedBeaconBlock, res["data"]))
+    return {"state": state, "blocks": blocks, "fetch_state_s": fetch_s,
+            "fetch_blocks_s": time.perf_counter() - t0,
+            "finalized_state_root": header["state_root"],
+            "dev": {"head": [int(head["slot"]), client.get_block_root("head")["data"]["root"]],
+                    "finalized": [int(fin["finalized"]["epoch"]), fin["finalized"]["root"]],
+                    "justified": [int(fin["current_justified"]["epoch"]),
+                                  fin["current_justified"]["root"]]}}
+
+
+async def anchored_node(fetched, device, p, slots=NODE_SLOTS, step=None, db_dir=None):
+    """(b)'s node: `BeaconNode.init` on `device` anchored on the fetched
+    state (the dev chain config, a db under `db_dir`, metrics and REST
+    servers on ports the system picks, a manual clock at `slots`), the fetched blocks
+    imported through its chain (inside `step("b")` when given), one scrape
+    of its /metrics and one `notifier.on_slot(slots)` line; closed after.
+    Runs on the calling loop (it becomes the chain's loop)."""
+    import tempfile
+
+    from lodestar_tpu_torch.cli import dev_chain_config
+    from lodestar_tpu_torch.node import BeaconNode, BeaconNodeOptions
+
+    cc = dev_chain_config()
+    with tempfile.TemporaryDirectory(dir=db_dir) as tmp:
+        opts = BeaconNodeOptions(
+            device=device, db_path=os.path.join(tmp, "wal.log"), metrics_enabled=True,
+            metrics_port=0, rest_port=0, manual_clock=True)
+        node = await BeaconNode.init(anchor_state=fetched["state"], chain_config=cc, opts=opts,
+                                     p=p, time_fn=lambda: slots * cc.SECONDS_PER_SLOT)
+        try:
+            out = {"verifier": verifier_kind(node.bls), "anchor": checkpoints(node.chain),
+                   "ports": {"rest": node.rest_server.port,
+                             "metrics": node.metrics_server.port}}
+            t0 = time.perf_counter()
+            with step("b") if step is not None else contextlib.nullcontext():
+                for signed in fetched["blocks"]:
+                    await node.chain.process_block(signed)
+            out["import_s"] = time.perf_counter() - t0
+            out.update(checkpoints(node.chain))
+            out["pool"] = dict(getattr(node.bls, "metrics", {}))
+            out["scrape"] = scrape_metrics(None, port=node.metrics_server.port)
+            out["notifier"] = node.notifier.on_slot(slots)
+        finally:
+            await node.close()
+    return out
+
+
+def node_run(device="cuda", step=None, linger=NODE_LINGER_S, slots=NODE_SLOTS):
+    """Phase 10g's scenario on `device` ("cuda", or "cpu" to run it here):
+    (a) `cli.main(["dev", ...])` on a thread (its stdout kept by
+    `ThreadLines`), (b) `fetch_anchor` while it lingers, then
+    `anchored_node`, (c) both closed. `step(name)` is a context manager
+    around (a) and (b) (CountedStep), or None. Restores the process-global
+    settings the nodes change. Returns what each part gave."""
+    import asyncio
+    import threading
+
+    from lodestar_tpu_torch import cli, params
+
+    before = {th.name for th in threading.enumerate()}
+    port = free_port()
+    argv = ["dev", "--validators", str(NODE_VALIDATORS), "--slots", str(slots),
+            "--preset", "minimal", "--rest-port", str(port), "--linger", str(linger)]
+    if device != "cuda":
+        argv += ["--device", device]
+    result, times = {}, []
+
+    def dev():
+        try:
+            result["rc"] = cli.main(argv)
+        except BaseException as e:  # the phase reports it
+            result["error"] = repr(e)
+
+    out = {"argv": argv}
+    with node_settings_restored(), timed_imports(times):
+        thread = threading.Thread(target=dev, name="node-dev")
+        lines = ThreadLines(sys.stdout, thread.name, "node: (a) ", "dev chain done")
+        sys.stdout = lines
+        try:
+            t0 = time.perf_counter()
+            with step("a") if step is not None else contextlib.nullcontext():
+                thread.start()
+                while not lines.seen.wait(0.2):
+                    if not thread.is_alive():
+                        raise P2pCheckFailed(f"node: the dev run ended early: {result}")
+            out["dev_s"] = time.perf_counter() - t0
+            out["dev_imports"] = [(dt, err) for chain, dt, err in times]
+            out["dev_verifier"] = verifier_kind(times[0][0].bls) if times else None
+            t0 = time.perf_counter()
+            fetched = fetch_anchor(f"http://127.0.0.1:{port}", params.MINIMAL, slots)
+            out["fetch_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out["anchored"] = asyncio.run(anchored_node(fetched, device, params.MINIMAL,
+                                                        slots, step))
+            out["anchored_s"] = time.perf_counter() - t0
+            out["anchored_imports"] = [(dt, err) for chain, dt, err in times[len(out["dev_imports"]):]]
+            t0 = time.perf_counter()
+            thread.join(linger + 60)
+        finally:
+            sys.stdout = lines.real
+        out["close_s"] = time.perf_counter() - t0
+    out["lines"] = lines.lines
+    out["rc"] = result.get("rc")
+    out["error"] = result.get("error")
+    out.update({k: fetched[k] for k in ("fetch_state_s", "fetch_blocks_s", "finalized_state_root",
+                                        "dev")})
+    from lodestar_tpu_torch.state_transition import state_hash_tree_root
+
+    out["anchor_state_root"] = "0x" + bytes(state_hash_tree_root(fetched["state"])).hex()
+    out["anchor_slot"] = int(fetched["state"].slot)
+    out["blocks"] = len(fetched["blocks"])
+    deadline = time.time() + 15
+    while time.time() < deadline and (server_threads() or thread.is_alive()):
+        time.sleep(0.05)
+    out["threads_left"] = sorted({th.name for th in threading.enumerate()} - before)
+    out["listening"] = [p for p in (port, *out["anchored"]["ports"].values()) if listening(p)]
+    return out
+
+
+def node_phase(dev, smi):
+    """Phase 10g: `node_run` on the card, each part a counted step. Fails on
+    a verifier other than the CUDA pool, a rejected block, a replay other
+    than one class-8 replay an import, a capture, an eager launch, a kernel
+    no replay launched, a scrape that disagrees with the counts, a node
+    that does not finalize as the CPU runs of both packages do, or anything
+    left running. Lines start `node:`."""
+    from lodestar_tpu_torch.models import batch_verify as bv
+    from lodestar_tpu_torch.ops import fp_cuda
+    from lodestar_tpu_torch.ssz import device_htr as dh
+
+    on_card = dev.type == "cuda"
+    cache = bv._SINGLE_LAUNCH_GRAPHS
+    captures = (cache.captures, dh.HTR_GRAPHS.captures, dh.ROOT_GRAPHS.captures)
+    steps, replayed_total, classes_seen = {}, dict.fromkeys(fp_cuda.KERNELS, 0), set()
+
+    def Step(name):
+        return CountedStep(dev, steps, replayed_total, classes_seen, name)
+
+    t0 = time.perf_counter()
+    try:
+        rec = node_run("cuda" if on_card else "cpu", step=Step)
+    except P2pCheckFailed as e:
+        fail(str(e))
+    wall = time.perf_counter() - t0
+    b = rec["anchored"]
+    n_a, n_b = NODE_SLOTS, NODE_SLOTS - rec["anchor_slot"]
+    want_verifier = "pool:cuda" if on_card else "BlsSingleThreadVerifier"
+    if rec["error"] is not None or rec["rc"] != 0:
+        fail(f"node: the dev command returned {rec['rc']} ({rec['error']})")
+    if rec["lines"][-1] != f"dev chain done: head slot {NODE_SLOTS}, finalized epoch 2":
+        fail(f"node: the dev run ended with {rec['lines'][-1]!r}")
+    if sum(1 for line in rec["lines"] if ": block atts=" in line) != n_a:
+        fail(f"node: not every slot of the dev run proposed a block: {rec['lines']}")
+    if rec["dev_verifier"] != want_verifier or b["verifier"] != want_verifier:
+        fail(f"node: the verifiers are {rec['dev_verifier']} and {b['verifier']}, "
+             f"not {want_verifier}")
+    rejected = [err for _, err in rec["dev_imports"] + rec["anchored_imports"] if err]
+    if rejected or len(rec["dev_imports"]) != n_a or len(rec["anchored_imports"]) != n_b:
+        fail(f"node: imports {len(rec['dev_imports'])} + {len(rec['anchored_imports'])}, "
+             f"rejected {rejected}")
+    if rec["anchor_state_root"] != rec["finalized_state_root"]:
+        fail(f"node: the checkpoint state's root {rec['anchor_state_root']} is not the "
+             f"finalized block's state root {rec['finalized_state_root']}")
+    dev_cp = rec["dev"]
+    # the justified checkpoint may differ: a store anchored past genesis starts
+    # at the anchor's epoch + 1 (as the JAX package's does; the CPU test holds
+    # both packages' anchored nodes to the same three checkpoints)
+    if b["head"] != dev_cp["head"] or b["finalized"] != dev_cp["finalized"]:
+        fail(f"node: the anchored node's head {b['head']} and finalized {b['finalized']} "
+             f"are not the dev node's {dev_cp}")
+    if rec["threads_left"] or rec["listening"]:
+        fail(f"node: left running: threads {rec['threads_left']}, ports {rec['listening']}")
+    samples = b["scrape"][0]
+    got = {"head_slot": sample_sum(samples, "beacon_head_slot"),
+           "finalized_epoch": sample_sum(samples, "beacon_finalized_epoch"),
+           "jobs_dequeued": sample_sum(samples, "lodestar_sched_jobs_dequeued_total")}
+    want = {"head_slot": b["head"][0], "finalized_epoch": b["finalized"][0],
+            "jobs_dequeued": b["pool"].get("jobs_started", 0)}
+    if on_card:
+        got["single_launch_by_class"] = {
+            int(dict(lab)["size_class"]): int(v) for (name, lab), v in samples.items()
+            if name == "lodestar_device_launch_seconds_count" and v
+            and dict(lab)["program"] == "_single_launch_verify"}
+        want["single_launch_by_class"] = steps["b"]["replays_by_class"]
+        want["jobs_dequeued"] = n_b
+    if got != want:
+        fail(f"node: (b)'s scrape {got} disagrees with the phase's counts {want}")
+    per_replay = {}
+    if on_card:
+        for name in ("a", "b"):
+            st = steps[name]
+            n = n_a if name == "a" else n_b
+            if st["replays_by_class"] != {8: n}:
+                fail(f"node: ({name}) replayed {st['replays_by_class']}, not {n} of class 8")
+            if any(st["fp_eager"].values()):
+                fail(f"node: ({name}) launched kernels eagerly: {st['fp_eager']}")
+        missing = [k for k in fp_cuda.KERNELS if replayed_total[k] <= 0]
+        if missing:
+            fail(f"node: kernels never launched in the phase: {missing}")
+        per_replay = cache.graphs[(dev.index, 8)].launches
+    now = (cache.captures, dh.HTR_GRAPHS.captures, dh.ROOT_GRAPHS.captures)
+    if now != captures:
+        fail(f"node: graphs were captured in the phase (BLS, HTR level, HTR root: "
+             f"{captures} -> {now})")
+    replay_ms8 = replay_ms(cache.graphs[(dev.index, 8)]) if on_card else None
+    busy_ms8, events8 = profiled_replay(cache.graphs[(dev.index, 8)]) if on_card else (None, 0)
+
+    def spread(xs):
+        xs = sorted(xs)
+        return [xs[0], xs[len(xs) // 2], xs[-1]] if xs else None
+
+    a_imports = spread([dt for dt, _ in rec["dev_imports"]])
+    b_imports = spread([dt for dt, _ in rec["anchored_imports"]])
+    # the card's idle share, estimated: the run's replays x one profiled
+    # class-8 replay's kernel busy ms, over the run's wall s
+    idle = {}
+    for name in ("a", "b"):
+        wall_s = rec["dev_s"] if name == "a" else b["import_s"]
+        busy = (sum(steps[name]["replays_by_class"].values()) * busy_ms8 / 1e3
+                if busy_ms8 else None)
+        idle[name] = {"wall_s": wall_s, "busy_s": busy,
+                      "idle_estimated": None if busy is None else 1 - busy / wall_s}
+
+    def share(x):
+        return "not measured" if x is None else f"{x:.3f}"
+    a_fp = steps["a"]["fp_replayed"]
+    say(f"node: (a) `python -m lodestar_tpu_torch {' '.join(rec['argv'])}` in-process: "
+        f"verifier {rec['dev_verifier']}, {n_a} blocks in {rec['dev_s']:.2f} s, per import "
+        f"(min / median / max) {a_imports} s, replays {steps['a']['replays_by_class']}, "
+        f"exit {rec['rc']} on {smi}")
+    say(f"node: (a) Fp launches {a_fp} (predicted {n_a} x a class-8 replay's "
+        f"{ {k: n_a * v for k, v in per_replay.items()} }); a class-8 replay {replay_ms8} ms "
+        f"device (CUDA events), its kernels busy {busy_ms8} ms over {events8} device events "
+        f"(profiled); idle share estimated from {n_a} replays x that busy time over the "
+        f"{idle['a']['wall_s']:.2f} s run: {share(idle['a']['idle_estimated'])}")
+    say(f"node: (b) checkpoint state fetched over REST in {rec['fetch_state_s']:.3f} s: slot "
+        f"{rec['anchor_slot']}, root {rec['anchor_state_root']} (the finalized block's state "
+        f"root); {rec['blocks']} blocks in {rec['fetch_blocks_s']:.3f} s")
+    say(f"node: (b) anchored node ({b['verifier']}) imported {rec['blocks']} blocks in "
+        f"{b['import_s']:.2f} s, per import {b_imports} s, replays "
+        f"{steps['b']['replays_by_class']}, idle estimated {share(idle['b']['idle_estimated'])}; "
+        f"head {b['head']}, "
+        f"finalized {b['finalized']}, justified {b['justified']}; the dev node's head "
+        f"{dev_cp['head']}, finalized {dev_cp['finalized']}, justified {dev_cp['justified']}")
+    say(f"node: (b) scrape {b['scrape'][1]} bytes in {b['scrape'][2]:.2f} ms: {got}; "
+        f"notifier: {b['notifier']}")
+    say(f"node: (c) both nodes closed in {rec['close_s']:.2f} s (the dev node's linger "
+        f"included); no thread, server or socket left; phase {wall:.1f} s")
+    return {"dev_s": rec["dev_s"], "dev_imports_s": a_imports, "anchored_imports_s": b_imports,
+            "replays": {k: steps[k]["replays_by_class"] for k in ("a", "b")},
+            "fp_replayed": {k: steps[k]["fp_replayed"] for k in ("a", "b")},
+            "idle": idle, "replay_ms_class8": replay_ms8,
+            "busy_ms_class8": busy_ms8, "fetch_state_s": rec["fetch_state_s"],
+            "fetch_blocks_s": rec["fetch_blocks_s"], "anchor_slot": rec["anchor_slot"],
+            "head": b["head"], "finalized": b["finalized"], "justified": b["justified"],
+            "dev": dev_cp, "scrape": {"bytes": b["scrape"][1], "ms": b["scrape"][2],
+                                      "compared": got},
+            "notifier": b["notifier"], "close_s": rec["close_s"], "wall_s": wall,
+            "replayed": replayed_total}
+
+
 # --- comparison with an earlier commit's kernels (--compare-parent) -----------
 
 
@@ -6403,6 +6819,8 @@ def main():
     lced = phase("lightclient", lightclient_phase, dev, smi, blocked, synced)
     # 10f. a validator client's duties over the REST API on that chain
     rested = phase("rest", rest_phase, dev, smi, blocked, synced)
+    # 10g. the node and the CLI: a dev chain finalizing on the card, a node synced from it
+    noded = phase("node", node_phase, dev, smi)
     # 11. check against the CPU path
     phase("check", check_against_cpu, dev)
     if parent is not None:
@@ -6450,6 +6868,7 @@ def main():
             "p2p_replayed": p2ped["replayed"][name],
             "lc_replayed": lced["replayed"][name],
             "rest_replayed": rested["replayed"][name],
+            "node_replayed": noded["replayed"][name],
         }
         for label, per_rows in runs.items():
             by_rows = per_rows[name]
@@ -6476,8 +6895,9 @@ def main():
     say("single: " + json.dumps({
         "bytes_to_verdict_s": single["bytes_to_verdict_s"], "sigs_per_s": single["sigs_per_s"],
         "host_bytes_s": single["host_s"], "replay_s": single["replay_s"],
-        "busy_ms": single["busy_ms"], "idle": single["idle"],
-        "device_events": single["device_events"], "nodes": g.nodes, "capture_s": g.capture_s,
+        "replay_device_ms": single["replay_device_ms"],
+        "replay_share": single["replay_share"],
+        "nodes": g.nodes, "capture_s": g.capture_s,
         "instantiate_s": g.instantiate_s, "pool_bytes": g.pool_bytes,
         "fp_launches_per_replay": g.launches, "many_16x128_s": many_s}))
     say("main: native prep " + json.dumps(main_run["native"]))
@@ -6501,6 +6921,7 @@ def main():
     say("lightclient: " + json.dumps({k: v for k, v in lced.items() if k != "replayed"},
                                      default=str))
     say("rest: " + json.dumps({k: v for k, v in rested.items() if k != "replayed"}))
+    say("node: " + json.dumps({k: v for k, v in noded.items() if k != "replayed"}))
     say(f"result: {main_run['sigs_per_s']:.1f} sigs/s verify-only, "
         f"{main_run['bytes_to_verdict_sigs_per_s']:.1f} sigs/s bytes to verdict ({merged}-set "
         f"merged batch, split schedule, device prep {main_run['prep_s']:.3f} s); single launch "
