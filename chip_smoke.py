@@ -79,6 +79,14 @@ Phases, in order; any failure exits non-zero and prints no result:
             `device_batch_verify_many` on the merged batch as 16 jobs of
             128 (every job True; one tampered job False), eagerly, at row
             counts phase 3 checked.
+6b. bench   the CLI's `bench` in-process (`cli.main(["bench"])`, stdout
+            captured): the port's benchmark (`lodestar_tpu_torch/bench.py`,
+            the counterpart of the repo's bench.py) on phase 6's class-2048
+            graph. Its one line must have bench.py's keys, metric and unit,
+            value > 0 and vs_baseline == round(value / 2200, 2); the graph
+            must replay exactly ITERS + 1 times with no capture, and
+            `graphs.REPLAYED` must book each kernel at the graph's launches
+            x (ITERS + 1), with no eager launch. Prints `bench: {...}`.
 7. serve    serving through the port's verifier pool: `warm_single_launch`
             captures every size class a package of the pool can reach
             (`POOL_SIZE_CLASSES`, 8 through 1024; 128 is already captured
@@ -195,7 +203,10 @@ Phases, in order; any failure exits non-zero and prints no result:
             root equal to hashlib's; pair-hashes/s; the host hasher's
             backend and its pair-hashes/s on the tree and on a 2,047-pair
             level (the largest host level) beside hashlib's, the native
-            root equal to hashlib's. (b) the collector on a
+            root equal to hashlib's. Then the port's `bench.bench_merkle()`
+            (BASELINE config 4's line) on (a)'s graph: 1 + MERKLE_ITERS
+            replays, no capture, its root equal to hashlib's; prints
+            `bench_merkle: {...}`. (b) the collector on a
             2^18-chunk stack with 4096 dirty chunks a flush, 5 flushes, each
             on the device with at most 18 launches; chunks/s. (c) a mainnet
             Capella BeaconState with 2^20 validators: a cold root,
@@ -1336,6 +1347,59 @@ def single_launch(dev, smi, main):
         "replay_device_ms": device_ms,
         "replay_share": share,
     }
+
+
+BENCH_KEYS = ["metric", "value", "unit", "vs_baseline"]
+
+
+def bench_phase(dev, smi, single):
+    """Phase 6b: the CLI's `bench` in-process, on phase 6's class-2048
+    graph. Returns its line, its s and the Fp launches its replays booked."""
+    import contextlib
+    import io
+
+    from lodestar_tpu_torch import bench, cli, graphs
+    from lodestar_tpu_torch.models import batch_verify as bv
+    from lodestar_tpu_torch.ops import fp_cuda
+
+    cache = bv._SINGLE_LAUNCH_GRAPHS
+    merged = bench.BATCH * bench.MERGE_JOBS
+    g = cache.graphs.get((dev.index, merged))
+    if g is None or g is not single["graph"]:
+        fail(f"bench: the class-{merged} graph is not phase 6's")
+    replays, captures = g.replays, cache.captures
+    fp_cuda.reset_launches()
+    graphs.reset_replayed()  # the bench's run starts here
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["bench"])
+    bench_s = time.perf_counter() - t0
+    replayed = dict(graphs.REPLAYED)  # and ends here
+    eager = dict(fp_cuda.LAUNCHES)
+    text = out.getvalue()
+    lines = text.splitlines()
+    if rc != 0 or len(lines) != 1 or not text.endswith("\n"):
+        fail(f"bench: `bench` returned {rc} and printed {text!r}, not one line")
+    line = json.loads(lines[0])
+    if (list(line) != BENCH_KEYS or line["metric"] != "bls_batch_verify_sigs_per_sec"
+            or line["unit"] != "sigs/s" or not line["value"] > 0):
+        fail(f"bench: the line {line} is not bench.py's")
+    if line["vs_baseline"] != round(line["value"] / bench.REFERENCE_SIGS_PER_SEC_PER_CORE, 2):
+        fail(f"bench: vs_baseline {line['vs_baseline']} is not value / 2200")
+    runs = bench.ITERS + 1
+    if g.replays - replays != runs or cache.captures != captures:
+        fail(f"bench: {g.replays - replays} replays of the class-{merged} graph and "
+             f"{cache.captures - captures} captures, not {runs} and 0")
+    want = {k: g.launches[k] * runs for k in fp_cuda.KERNELS}
+    if replayed != want or any(eager.values()):
+        fail(f"bench: replays booked {replayed}, not the graph's launches x {runs} {want}; "
+             f"eager launches {eager}")
+    say("bench: " + json.dumps(line))
+    say(f"bench: `python -m lodestar_tpu_torch bench` in-process {bench_s:.2f} s (sets made, host "
+        f"byte stage, {runs} replays of the class-{merged} graph, no capture); Fp launches "
+        f"booked {replayed} on {smi}")
+    return {"line": line, "s": bench_s, "replayed": replayed}
 
 
 def verify_many(dev, smi, main):
@@ -3127,6 +3191,35 @@ def htr_graphs(dev, smi):
     return {"classes": out, "pools_bytes": pools}
 
 
+def htr_bench_merkle(dev, smi):
+    """The port's `bench.bench_merkle()` (BASELINE config 4's line) on (a)'s
+    2^20-chunk root graph: 1 + MERKLE_ITERS replays, no capture; its own
+    gate holds the root to hashlib's. The HTR device is (a)'s after it."""
+    from lodestar_tpu_torch import bench
+    from lodestar_tpu_torch.ssz import device_htr as dh
+
+    g = dh.ROOT_GRAPHS.graphs.get((dev.index, 1 << HTR_TREE_DEPTH))
+    if g is None:
+        fail("htr: (a) left no 2^20-chunk root graph")
+    replays, captures = g.replays, dh.ROOT_GRAPHS.captures
+    t0 = time.perf_counter()
+    line = bench.bench_merkle()
+    merkle_s = time.perf_counter() - t0
+    runs = 1 + bench.MERKLE_ITERS
+    if g.replays - replays != runs or dh.ROOT_GRAPHS.captures != captures:
+        fail(f"bench_merkle: {g.replays - replays} replays and "
+             f"{dh.ROOT_GRAPHS.captures - captures} captures, not {runs} and 0")
+    if dh._htr_device != dev:
+        fail(f"bench_merkle: the HTR device is {dh._htr_device} after it, not {dev}")
+    if (list(line) != BENCH_KEYS or line["metric"] != "merkle_sha256_pair_hashes_per_sec"
+            or line["unit"] != "hashes/s" or not line["value"] > 0):
+        fail(f"bench_merkle: the line {line} is not bench.py's")
+    say("bench_merkle: " + json.dumps(line))
+    say(f"htr: bench_merkle {merkle_s:.2f} s ({runs} replays of (a)'s graph, hashlib's root "
+        f"and sample included) on {smi}")
+    return {"line": line, "s": merkle_s}
+
+
 def htr(dev, smi):
     """Phase 8: the state hashTreeRoot on the card. Launch counts and
     replays are read around every part; returns their figures."""
@@ -3136,8 +3229,9 @@ def htr(dev, smi):
         fail("htr: device hashing is not the default on the card")
     dh.configure_device_htr(device=dev)
     t0 = time.perf_counter()
-    out = {"tree": htr_tree(dev, smi), "collector": htr_collector(dev, smi),
-           "state": htr_state(dev, smi), "graphs": htr_graphs(dev, smi)}
+    out = {"tree": htr_tree(dev, smi), "bench_merkle": htr_bench_merkle(dev, smi),
+           "collector": htr_collector(dev, smi), "state": htr_state(dev, smi),
+           "graphs": htr_graphs(dev, smi)}
     out["phase_s"] = time.perf_counter() - t0
     say(f"htr: phase {out['phase_s']:.1f} s")
     return out
@@ -6794,6 +6888,8 @@ def main():
     per_ms, profiled_ms = phase("profile", profile_main, main_run, smi)
     # 6. single launch, and the J-job verify
     single = phase("single", single_launch, dev, smi, main_run)
+    # 6b. the CLI's `bench` on phase 6's class-2048 graph
+    benched = phase("bench", bench_phase, dev, smi, single)
     many_s = phase("many", verify_many, dev, smi, main_run)
     # 7. serving through the verifier pool
     served = phase("serve", serve, dev, smi, main_run)
@@ -6842,6 +6938,7 @@ def main():
             "launches_per_2048_single_launch": single["graph"].launches[name],
             "launches_per_2048_single_launch_by_rows": single["graph"].rows[name],
             "single_launch_replayed": single["replayed"][name],
+            "bench_replayed": benched["replayed"][name],
             "launches_per_replay_by_class": {
                 size: g.launches[name]
                 for (idx, size), g in sorted(bv._SINGLE_LAUNCH_GRAPHS.graphs.items())

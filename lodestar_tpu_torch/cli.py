@@ -7,6 +7,7 @@ Usage:
   python -m lodestar_tpu_torch beacon --db ./chain-db [--rest-port 9596] [--device cpu]
   python -m lodestar_tpu_torch validator --beacon-url http://127.0.0.1:9596 --interop-keys 16
   python -m lodestar_tpu_torch lightclient --server http://127.0.0.1:9596
+  python -m lodestar_tpu_torch bench [--device cpu]
 
 The port of `lodestar_tpu.cli`, with its imports rewritten and three
 departures (ROADMAP Queue 3):
@@ -14,8 +15,10 @@ departures (ROADMAP Queue 3):
 * `dev` and `beacon` take `--device {cuda,cpu}` (default cuda), passed to
   `BeaconNodeOptions(device=)`: the way to ask for the CPU, where the JAX
   CLI reads `JAX_PLATFORMS`. Without CUDA, the default raises.
-* `bench` stays in the parser, but the port has no benchmark of its own
-  yet: it says so on stderr and exits 2.
+* `bench` runs the port's benchmark, `lodestar_tpu_torch.bench` (the
+  counterpart of the repo's `bench.py`, which the JAX CLI runs), and
+  takes `--device {cuda,cpu}` too (default cuda; without CUDA it raises
+  and prints no line).
 * The parser's prog and description name the port. Every dest, default
   and choice is the JAX parser's.
 """
@@ -27,10 +30,6 @@ import asyncio
 import sys
 
 __all__ = ["main"]
-
-#: what `bench` says: the repo's bench.py drives the JAX package, and the
-#: port's own benchmark is not written yet
-BENCH_MISSING = "error: the port's benchmark is not in the tree yet; `bench` has nothing to run"
 
 
 def _add_tracing_args(sp) -> None:
@@ -302,7 +301,15 @@ def _build_parser(with_subparsers: bool = False):
     lc.add_argument("--target-slot", type=int, default=0, help="exit 0 once the light head reaches this slot (0 = follow forever)")
     lc.add_argument("--poll-sec", type=float, default=2.0)
 
-    sub.add_parser("bench", help="run the device benchmark (not in the port yet)")
+    bench = sub.add_parser("bench", help="run the device benchmark")
+    bench.add_argument(
+        # the node commands' --device choices (argparse-import doctrine:
+        # bench.main resolves the device and raises without CUDA)
+        "--device", choices=["cuda", "cpu"], default="cuda",
+        help="time the 2,048-set batch verify on this device: cuda = the "
+        "single launch on the GPU (raises without CUDA), cpu = the split "
+        "schedule on the plain PyTorch path",
+    )
     if with_subparsers:
         return ap, subparsers
     return ap
@@ -869,7 +876,10 @@ def main(argv: list[str] | None = None) -> int:
     if args.cmd == "validator":
         return asyncio.run(_run_validator(args))
     if args.cmd == "bench":
-        print(BENCH_MISSING, file=sys.stderr)
+        from . import bench
+
+        bench.main(device=args.device)
+        return 0
     return 2
 
 

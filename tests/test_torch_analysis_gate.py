@@ -42,15 +42,18 @@ def test_ports_cli_flags_node_options_and_metrics_are_wired(tmp_path):
 
 def test_wiring_rule_sees_an_unwired_device_in_the_port(tmp_path):
     """The same rule over copies of the port's CLI and node in which
-    `--device` is never passed on and the node stores `device` under
+    `--device` is never passed on (to the node's options nor to the
+    bench) and the node stores `device` under
     another name: each fault is found."""
     pkg = tmp_path / "lodestar_tpu"
     (pkg / "node").mkdir(parents=True)
     cli = (REPO / "lodestar_tpu_torch" / "cli.py").read_text()
     node = (REPO / "lodestar_tpu_torch" / "node" / "__init__.py").read_text()
-    assert cli.count("device=args.device,") == 2
+    assert cli.count("device=args.device,") == 2  # dev's and beacon's options
+    assert cli.count("bench.main(device=args.device)") == 1
     assert node.count("self.device = device") == 1
-    (pkg / "cli.py").write_text(cli.replace("device=args.device,", ""))
+    (pkg / "cli.py").write_text(cli.replace("device=args.device,", "").replace(
+        "bench.main(device=args.device)", "bench.main()"))
     (pkg / "node" / "__init__.py").write_text(
         node.replace("self.device = device", "self.device_x = device"))
     found = wiring_findings(tmp_path)

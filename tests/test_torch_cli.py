@@ -5,31 +5,35 @@ Tolerance: none. Beside each other:
 
 * every subcommand's parser has the same dests, option strings, defaults,
   choices, types and actions as the JAX parser's, apart from the port's
-  `--device` of `dev` and `beacon` (ROADMAP Queue 3);
+  `--device` of `dev`, `beacon` and `bench` (ROADMAP Queue 3);
 * the literal mode choices the CLI keeps (it must not import the layers
   that own them) are the canonical tuples of both packages;
 * `--rc-config` (a YAML file's values as the defaults, flags still winning;
   dashes or underscores; unknown keys, a file that is not a mapping and a
   missing path refused) parses the same in both, or refuses with the same
   message;
-* `bench` exits 2 with one line on stderr: the port has no benchmark yet;
-  `python -m lodestar_tpu_torch` runs the CLI and its `bench` exits 2.
+* `bench --device cpu` runs the port's benchmark (`lodestar_tpu_torch.bench`,
+  here at 2 jobs of 8 sets) and prints one JSON line; `python -m
+  lodestar_tpu_torch` runs the CLI, and its `bench` without CUDA fails
+  with nothing on stdout.
 """
 
 from __future__ import annotations
 
 import argparse
 import importlib
+import json
 import os
 import subprocess
 import sys
 
 import pytest
+import torch
 
 J, T = "lodestar_tpu", "lodestar_tpu_torch"
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SUBCOMMANDS = ("dev", "beacon", "validator", "lightclient", "bench")
-PORT_ONLY = {"dev": {"device"}, "beacon": {"device"}}
+PORT_ONLY = {"dev": {"device"}, "beacon": {"device"}, "bench": {"device"}}
 
 
 def cli(root):
@@ -153,19 +157,56 @@ def test_rc_config_sets_the_ports_device(tmp_path):
         "exit", f"--rc-config {path}: unknown keys ['device']")
 
 
-def test_bench_says_the_benchmark_is_missing_and_exits_2(capsys):
-    assert cli(T).main(["bench"]) == 2
-    out, err = capsys.readouterr()
-    assert out == "" and err.strip() == cli(T).BENCH_MISSING
+def test_bench_says_the_benchmark_is_missing_and_exits_2(capsys, monkeypatch):
+    """(The name is the stub's: `bench` now runs the port's benchmark.)
+    `bench --device cpu` in-process, at 2 jobs of 8 sets and one timed
+    launch on one ATen thread, returns 0 and prints exactly one JSON line
+    with bench.py's keys and strings."""
+    from lodestar_tpu_torch import bench
+
+    monkeypatch.setattr(bench, "BATCH", 8)
+    monkeypatch.setattr(bench, "MERGE_JOBS", 2)
+    monkeypatch.setattr(bench, "ITERS", 1)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        assert cli(T).main(["bench", "--device", "cpu"]) == 0
+    finally:
+        torch.set_num_threads(threads)
+    out, _ = capsys.readouterr()
+    lines = out.splitlines()
+    assert len(lines) == 1 and out.endswith("\n")
+    line = json.loads(lines[0])
+    assert list(line) == ["metric", "value", "unit", "vs_baseline"]
+    assert line["metric"] == "bls_batch_verify_sigs_per_sec" and line["unit"] == "sigs/s"
+    assert line["value"] > 0 and line["vs_baseline"] == round(line["value"] / 2200.0, 2)
+
+
+def test_bench_takes_a_device(tmp_path, capsys):
+    """`bench --device` is "cuda" by default and takes only "cuda" and
+    "cpu"; an rc file's `device` sets it, as for `dev` and `beacon`."""
+    ap, subs = cli(T)._build_parser(with_subparsers=True)
+    assert ap.parse_args(["bench"]).device == "cuda"
+    assert ap.parse_args(["bench", "--device", "cpu"]).device == "cpu"
+    for bad in ("tpu", "cuda:0", "gpu"):
+        with pytest.raises(SystemExit):
+            ap.parse_args(["bench", "--device", bad])
+        assert "invalid choice" in capsys.readouterr().err
+    path = tmp_path / "rc.yaml"
+    path.write_text("device: cpu\n")
+    rc = cli(T)._apply_rc_config(ap, subs, ["--rc-config", str(path), "bench"])
+    assert ap.parse_args(rc).device == "cpu"
 
 
 def test_python_dash_m_runs_the_cli():
     env = {**os.environ, "PYTHONPATH": REPO}
-    bench = subprocess.run([sys.executable, "-m", T, "bench"], cwd=REPO, env=env,
-                           capture_output=True, text=True, timeout=120)
-    assert bench.returncode == 2 and bench.stdout == ""
-    assert bench.stderr.strip().endswith(cli(T).BENCH_MISSING)
     usage = subprocess.run([sys.executable, "-m", T], cwd=REPO, env=env,
                            capture_output=True, text=True, timeout=120)
     assert usage.returncode == 2 and "usage: lodestar-tpu-torch" in usage.stderr
     assert "{dev,beacon,validator,lightclient,bench}" in usage.stderr
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: `bench` on the default device would run")
+    bench = subprocess.run([sys.executable, "-m", T, "bench"], cwd=REPO, env=env,
+                           capture_output=True, text=True, timeout=120)
+    assert bench.returncode != 0 and bench.stdout == ""
+    assert "CUDA is not available" in bench.stderr

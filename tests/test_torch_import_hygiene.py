@@ -35,6 +35,7 @@ sys.modules["lodestar_tpu"] = None  # and so does any import of the JAX package
 sys.modules["grpc"] = None          # and grpc: the offload host imports without it
 sys.modules["yaml"] = None          # and PyYAML: spec_test reads .yaml only when a case has one
 sys.modules["prometheus_client"] = None  # and the metrics registry's library: built at first use
+sys.modules["bench"] = None         # and the repo's bench.py, the JAX package's benchmark
 import threading
 threads_before = threading.active_count()
 import lodestar_tpu_torch
@@ -101,8 +102,8 @@ def test_every_module_imports_without_jax():
     # eth1_tracker and builder; and api and its client, impl and server,
     # validator and its slashing_protection, store, keystore, doppelganger,
     # keymanager and rest_client, and flare; and node and its checkpoint_sync
-    # and notifier, cli and __main__ (which runs the CLI only as __main__)
-    assert "imported" in proc.stdout and int(proc.stdout.split()[-1]) >= 145
+    # and notifier, cli and __main__ (which runs the CLI only as __main__); and bench
+    assert "imported" in proc.stdout and int(proc.stdout.split()[-1]) >= 146
 
 
 def _imported_top_levels(path):
@@ -117,7 +118,7 @@ def _imported_top_levels(path):
 
 def test_no_module_imports_jax_or_the_jax_package():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) >= 104
+    assert len(files) >= 105
     serving = {"chain/bls/pool.py", "chain/bls/mesh.py", "chain/bls/interface.py",
                "scheduler/core.py", "scheduler/occupancy.py", "slo.py", "tracing/__init__.py",
                "logger.py", "utils/__init__.py", "offload/resilience.py",
@@ -161,7 +162,7 @@ def test_no_module_imports_jax_or_the_jax_package():
                                       "doppelganger", "keymanager", "rest_client")}
     assert len(api_validator) == 12
     node_cli = {"node/__init__.py", "node/checkpoint_sync.py", "node/notifier.py", "cli.py",
-                "__main__.py"}
+                "__main__.py", "bench.py"}
     assert (serving | htr | kzg | offload | sharded | stf | chain | network | p2p | light | host
             | api_validator | node_cli) <= {
         str(f.relative_to(PORT)) for f in files if PORT in f.parents}
@@ -172,6 +173,8 @@ def test_no_module_imports_jax_or_the_jax_package():
         if name in FORBIDDEN
     ]
     assert not bad, "\n".join(bad)
+    # nor does any import the repo's bench.py (the JAX package's benchmark)
+    assert not [f for f in files if PORT in f.parents and "bench" in dict(_imported_top_levels(f))]
     # the check itself tells the port's name from the JAX package's
     assert "lodestar_tpu_torch" not in FORBIDDEN
 

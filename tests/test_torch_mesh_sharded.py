@@ -7,7 +7,12 @@ Each sharded scenario of `tests/chain/test_mesh_pool.py` runs once through
 and once through `lodestar_tpu_torch.chain.bls` over the port's copy of it,
 with the same jobs: the verdicts, the collective's lane subsets, the
 single-lane calls and the counters must be equal, and each run must meet
-the original test's assertions. Then one real collective: the port's pool
+the original test's assertions. Both rigs' lane trackers read a stepped
+clock of the test's own (`SteppedClock`), which moves only where a
+scenario steps it, so a lane's occupancy, and with it every lane choice, is
+the same in both runs whatever the machine's load; a scenario of several
+jobs waits for each job's lanes to come back before it sends the next.
+Then one real collective: the port's pool
 over two lanes on "cpu" devices with `make_mesh_sharded_fn`, one bulk job of
 32 sets through `verify_signature_sets_sharded`. No JAX compile.
 """
@@ -15,7 +20,6 @@ over two lanes on "cpu" devices with `make_mesh_sharded_fn`, one bulk job of
 from __future__ import annotations
 
 import asyncio
-import time
 from types import SimpleNamespace
 
 import pytest
@@ -33,10 +37,40 @@ import lodestar_tpu_torch.scheduler as t_sched
 import lodestar_tpu_torch.testing.mesh as t_testing_mesh
 from lodestar_tpu_torch.models import batch_verify as bv
 
+
+class SteppedClock:
+    """A monotonic clock in ns that moves only when a scenario steps it."""
+
+    def __init__(self) -> None:
+        self.now_ns = 0
+
+    def monotonic_ns(self) -> int:
+        return self.now_ns
+
+    def step(self, seconds: float) -> None:
+        self.now_ns += int(seconds * 1e9)
+
+
+def _rig_on_a_stepped_clock(rig_cls, tracker_cls):
+    """`rig_cls` whose lanes' `OccupancyTracker`s all read one new
+    `SteppedClock` (`rig.clock`), in place of `time.monotonic_ns`."""
+
+    def make(*args, **kwargs):
+        rig = rig_cls(*args, **kwargs)
+        rig.clock = SteppedClock()
+        for lane in rig.mesh.lanes:
+            lane.occupancy = tracker_cls(time_fn=rig.clock.monotonic_ns)
+        return rig
+
+    return make
+
+
 JAX = SimpleNamespace(name="jax", bls=j_bls, mesh=j_mesh, api=j_api, sched=j_sched,
-                      rig=j_testing_mesh.FakeLaneRig)
+                      rig=_rig_on_a_stepped_clock(j_testing_mesh.FakeLaneRig,
+                                                  j_sched.OccupancyTracker))
 TORCH = SimpleNamespace(name="torch", bls=t_bls, mesh=t_mesh, api=t_api, sched=t_sched,
-                        rig=t_testing_mesh.FakeLaneRig)
+                        rig=_rig_on_a_stepped_clock(t_testing_mesh.FakeLaneRig,
+                                                    t_sched.OccupancyTracker))
 
 COUNTERS = ("jobs_started", "sig_sets_started", "batch_retries", "batch_sigs_success",
             "errors", "sharded_launches", "sharded_fallbacks")
@@ -63,6 +97,18 @@ def _opts(P, name):
 
 def _counters(pool):
     return {k: pool.metrics[k] for k in COUNTERS}
+
+
+async def _settled(rig):
+    """Wait until no lane of `rig` is held: a job's verdict reaches its
+    caller before the launch's `finally` hands its lanes back, so a next
+    job placed at once could find a lane still held, and a loaded machine
+    decides which."""
+    for _ in range(10_000):
+        if not any(lane.inflight for lane in rig.mesh.lanes):
+            return
+        await asyncio.sleep(0.001)
+    raise AssertionError("a lane was still held 10 s after its job's verdict")
 
 
 def s_bulk_shards_across_idle_lanes(P):
@@ -116,6 +162,7 @@ def s_sharded_error_degrades(P):
         for i in range(4):
             oks.append(await pool.verify_signature_sets(_sets(P, 64, tag=i),
                                                         _opts(P, "RANGE_SYNC")))
+            await _settled(rig)
         counters = _counters(pool)
         await pool.close()
         return oks, counters
@@ -165,7 +212,7 @@ def s_sharded_subset_is_index_ordered(P):
     for lane, busy_s in zip(rig.mesh.lanes, (0.04, 0.02, 0.08, 0.0)):
         if busy_s:
             lane.occupancy.begin()
-            time.sleep(busy_s)
+            rig.clock.step(busy_s)
             lane.occupancy.end()
     package = [SimpleNamespace(sets=_sets(P, 48))]
     mode, lanes = pool._pick_placement(getattr(P.sched.PriorityClass, "RANGE_SYNC"), package,
